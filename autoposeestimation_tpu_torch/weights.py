@@ -1,0 +1,148 @@
+"""The weight bridge: the JAX package's flax variable trees (nested dicts of
+numpy arrays, as `train/checkpoints.load_checkpoint` returns them) -> the
+port's state_dicts for `UNet`, `PoseNet` and `PoseRefineNet`.
+
+Each model has a plan: one (flax path, state_dict key, conversion) entry per
+leaf. Conversions: conv kernel HWIO -> OIHW, dense kernel (I, O) -> (O, I),
+PReLU slope () -> (1,), everything else copied (BatchNorm scale/bias ->
+weight/bias, batch_stats mean/var -> running_mean/running_var)."""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+Entry = Tuple[Tuple[str, ...], str, str]
+
+
+def _conv(plan: List[Entry], fp, key: str, bias: bool = False) -> None:
+    plan.append((("params",) + fp + ("kernel",), key + ".weight", "conv"))
+    if bias:
+        plan.append((("params",) + fp + ("bias",), key + ".bias", "copy"))
+
+
+def _dense(plan: List[Entry], fp, key: str) -> None:
+    plan.append((("params",) + fp + ("kernel",), key + ".weight", "dense"))
+    plan.append((("params",) + fp + ("bias",), key + ".bias", "copy"))
+
+
+def _bn(plan: List[Entry], fp, key: str) -> None:
+    plan.append((("params",) + fp + ("scale",), key + ".weight", "copy"))
+    plan.append((("params",) + fp + ("bias",), key + ".bias", "copy"))
+    plan.append((("batch_stats",) + fp + ("mean",), key + ".running_mean",
+                 "copy"))
+    plan.append((("batch_stats",) + fp + ("var",), key + ".running_var",
+                 "copy"))
+
+
+def unet_plan(encoder_stages: Sequence[int] = (3, 4, 6, 3)) -> List[Entry]:
+    plan: List[Entry] = []
+    enc = ("ResNetEncoder_0",)
+    _conv(plan, enc + ("Conv_0",), "encoder.conv1")
+    _bn(plan, enc + ("BatchNorm_0",), "encoder.bn1")
+    k = 0
+    for stage, blocks in enumerate(encoder_stages):
+        for b in range(blocks):
+            f = enc + (f"BasicBlockBN_{k}",)
+            t = f"encoder.layer{stage + 1}.{b}"
+            _conv(plan, f + ("Conv_0",), t + ".conv1")
+            _bn(plan, f + ("BatchNorm_0",), t + ".bn1")
+            _conv(plan, f + ("Conv_1",), t + ".conv2")
+            _bn(plan, f + ("BatchNorm_1",), t + ".bn2")
+            if stage > 0 and b == 0:
+                _conv(plan, f + ("Conv_2",), t + ".downsample.0")
+                _bn(plan, f + ("BatchNorm_2",), t + ".downsample.1")
+            k += 1
+    for i in range(5):
+        f = (f"DecoderBlock_{i}",)
+        _conv(plan, f + ("Conv_0",), f"decoder.{i}.conv1")
+        _bn(plan, f + ("BatchNorm_0",), f"decoder.{i}.bn1")
+        _conv(plan, f + ("Conv_1",), f"decoder.{i}.conv2")
+        _bn(plan, f + ("BatchNorm_1",), f"decoder.{i}.bn2")
+    _conv(plan, ("Conv_0",), "head", bias=True)
+    return plan
+
+
+_FEAT = ("conv1", "e_conv1", "conv2", "e_conv2", "conv5", "conv6")
+
+
+def posenet_plan() -> List[Entry]:
+    plan: List[Entry] = []
+    psp = ("PSPNet_0",)
+    res = psp + ("DilatedResNetNoBN_0",)
+    _conv(plan, res + ("Conv_0",), "cnn.feats.conv1")
+    k = 0
+    for layer in range(1, 5):
+        for b in range(2):
+            f = res + (f"BasicBlockPlain_{k}",)
+            t = f"cnn.feats.layer{layer}.{b}"
+            _conv(plan, f + ("Conv_0",), t + ".conv1")
+            _conv(plan, f + ("Conv_1",), t + ".conv2")
+            if layer > 1 and b == 0:
+                _conv(plan, f + ("Conv_2",), t + ".downsample")
+            k += 1
+    mod = psp + ("PSPModule_0",)
+    for i in range(4):
+        _conv(plan, mod + (f"Conv_{i}",), f"cnn.psp.stages.{i}")
+    _conv(plan, mod + ("Conv_4",), "cnn.psp.bottleneck", bias=True)
+    for i in range(3):
+        up = psp + (f"PSPUpsample_{i}",)
+        _conv(plan, up + ("Conv_0",), f"cnn.up_{i + 1}.conv", bias=True)
+        plan.append((("params",) + up + ("PReLU_0", "negative_slope"),
+                     f"cnn.up_{i + 1}.prelu.weight", "prelu"))
+    _conv(plan, psp + ("Conv_0",), "cnn.final", bias=True)
+    for i, name in enumerate(_FEAT):
+        _dense(plan, ("PoseNetFeat_0", f"Dense_{i}"), f"feat.{name}")
+    for h, suffix in enumerate("rtc"):
+        for i in range(4):
+            _dense(plan, (f"PoseHead_{h}", f"Dense_{i}"),
+                   f"head_{suffix}.conv{i + 1}")
+    return plan
+
+
+def refiner_plan() -> List[Entry]:
+    plan: List[Entry] = []
+    for i, name in enumerate(_FEAT):
+        _dense(plan, ("PoseRefineNetFeat_0", f"Dense_{i}"), f"feat.{name}")
+    for h, suffix in enumerate("rt"):
+        for i in range(3):
+            _dense(plan, (f"RefineHead_{h}", f"Dense_{i}"),
+                   f"head_{suffix}.conv{i + 1}")
+    return plan
+
+
+def _convert(arr: np.ndarray, kind: str) -> np.ndarray:
+    if kind == "conv":
+        return arr.transpose(3, 2, 0, 1)
+    if kind == "dense":
+        return arr.T
+    if kind == "prelu":
+        return arr.reshape(1)
+    return arr
+
+
+def to_state_dict(variables: Dict[str, Any],
+                  plan: List[Entry]) -> Dict[str, torch.Tensor]:
+    """Apply `plan` to a flax variable tree; raises KeyError on a missing
+    leaf."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, key, kind in plan:
+        node = variables
+        for p in path:
+            node = node[p]
+        arr = _convert(np.asarray(node, np.float32), kind)
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def unet_state_dict(variables):
+    return to_state_dict(variables, unet_plan())
+
+
+def posenet_state_dict(variables):
+    return to_state_dict(variables, posenet_plan())
+
+
+def refiner_state_dict(variables):
+    return to_state_dict(variables, refiner_plan())

@@ -1,0 +1,424 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`autoposeestimation_tpu_torch`) on one
+NVIDIA GPU and check it. Run from the repository root:
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and the script exits non-zero):
+  1. the card's name and power limit; build every CUDA kernel of the path,
+  2. kernels: each kernel against its plain PyTorch version on the card at
+     the main path's shapes, timed with CUDA events,
+  3. serving: `full_prediction` at the headline geometry (5 classes,
+     640x480, 1000 points, crop 320, 2 refine iterations, bf16, random
+     weights from a seed) at emb_stride 8 and 2, frames/s,
+  4. card vs CPU: the same f32 path at a small geometry on both devices,
+  5. evaluation: `evaluate` over ADD-S batches (B=8, N=1000, M=500, crop
+     320, symmetric and non-symmetric samples); the kernel launch counts are
+     read from this run, and the step is compared with the plain version on
+     the card.
+Then one JSON line with the kernels' numbers, and last the JSON result line.
+Needs no network; imports nothing of JAX.
+"""
+import json
+import subprocess
+import sys
+import time
+from unittest import mock
+
+import numpy as np
+import torch
+
+# f32 comparisons need full-precision matmuls and convolutions
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+
+DIS_ATOL = 1e-5   # the moments' tolerances of tests/test_pallas_addloss.py
+STD_ATOL = 1e-4
+POSE_ATOL = 1e-4  # card vs CPU, f32 with TF32 off
+
+
+def nvidia_smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean time of `fn` on the card over `reps` calls (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profile(fn, label: str, per: int, wall_ms: float) -> None:
+    """Device time that torch.profiler sees during `fn`, per unit (`per`
+    units in the call), with the kernel count, the top kernels and the
+    device's busy share of `wall_ms`, the unit's time measured without the
+    profiler."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # kernels only: the CPU-side aten ops carry their kernels' time too
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    if not events:
+        print(f"profile {label}: the profiler saw no device time")
+        return
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / per
+    kernels = sum(e.count for e in events) / per
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"profile {label}: device busy {device_ms:.4f} ms of "
+          f"{wall_ms:.4f} ms ({100 * device_ms / wall_ms:.1f}% busy), "
+          f"{kernels:.0f} kernels per unit; top: " + "; ".join(
+              f"{e.key[:48]} {e.self_device_time_total / 1e3 / per:.4f} ms"
+              for e in top))
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+# --- phase 2: kernels ----------------------------------------------------------
+
+def moment_cases(dev):
+    """(name, rot, pred_t, model, target) at the evaluation shape, plus a
+    wrap-padded tie case and a near-degenerate sphere."""
+    from autoposeestimation_tpu_torch.utils import transforms as T
+
+    rng = np.random.default_rng(0)
+    b, n, m = 8, 1000, 500
+
+    def tensors(quat, trans, points, model, target):
+        ts = [torch.as_tensor(np.asarray(a, np.float32), device=dev)
+              .contiguous() for a in (quat, trans, points, model, target)]
+        rot = T.quat_to_mat(ts[0]).contiguous()
+        return rot, (ts[2] + ts[1]).contiguous(), ts[3], ts[4]
+
+    model = rng.normal(size=(b, m, 3)) * 0.05
+    rot = T.quat_to_mat(torch.as_tensor(rng.normal(size=(b, 4)))).numpy()
+    target = np.einsum("bmj,bij->bmi", model, rot) + [0.01, 0.0, 0.02]
+    cases = [("eval_shape",) + tensors(
+        rng.normal(size=(b, n, 4)), rng.normal(size=(b, n, 3)) * 0.01,
+        rng.normal(size=(b, n, 3)) * 0.1, model, target)]
+    ties = target[:, np.arange(m) % 383]
+    cases.append(("ties",) + tensors(
+        rng.normal(size=(b, n, 4)), rng.normal(size=(b, n, 3)) * 0.01,
+        rng.normal(size=(b, n, 3)) * 0.1, model, ties))
+    i = np.arange(m) + 0.5
+    phi, theta = np.arccos(1 - 2 * i / m), np.pi * (1 + 5 ** 0.5) * i
+    sphere = np.stack([np.sin(phi) * np.cos(theta),
+                       np.sin(phi) * np.sin(theta), np.cos(phi)], 1) * 0.05
+    grown = sphere @ rot[0].T * (0.051 / 0.05)
+    quat = np.tile([1.0, 0, 0, 0], (1, n, 1)) + rng.normal(size=(1, n, 4)) \
+        * 1e-3
+    cases.append(("degenerate",) + tensors(
+        quat, rng.normal(size=(1, n, 3)) * 1e-5, np.zeros((1, n, 3)),
+        sphere[None], grown[None]))
+    return cases
+
+
+def kernel_phase(dev, clock_mhz: float):
+    from autoposeestimation_tpu_torch.ops import addloss
+
+    worst = 0.0
+    for name, rot, pred_t, model, target in moment_cases(dev):
+        dis_k, var_k = addloss.moments_cuda(rot, pred_t, model, target)
+        dis_p, var_p = addloss.moments_plain(rot, pred_t, model, target)
+        torch.cuda.synchronize()
+        err_dis = (dis_k - dis_p).abs().max().item()
+        err_std = (var_k.clamp(min=0).sqrt()
+                   - var_p.clamp(min=0).sqrt()).abs().max().item()
+        check(torch.isfinite(dis_k).all().item(), f"{name}: non-finite dis")
+        check(err_dis <= DIS_ATOL, f"{name}: dis error {err_dis}")
+        check(err_std <= STD_ATOL, f"{name}: std error {err_std}")
+        print(f"kernel sym_moments {name} {tuple(rot.shape[:2])} "
+              f"M={model.shape[1]}: max|dis err| {err_dis:.3e} "
+              f"max|std err| {err_std:.3e}")
+        worst = max(worst, err_dis, err_std)
+
+    _, rot, pred_t, model, target = moment_cases(dev)[0]
+    b, n = rot.shape[:2]
+    m = model.shape[1]
+    ms = cuda_ms(lambda: addloss.moments_cuda(rot, pred_t, model, target), 20)
+    plain_ms = cuda_ms(
+        lambda: addloss.moments_plain(rot, pred_t, model, target), 3, 1)
+    # least work: 4 FP32 instructions per point pair (the expansion form's
+    # 3 FMA + 1 min) at 128 FP32 lanes per SM per clock, the FP32 peak
+    # outside the tensor cores (67 TFLOP/s at 1980 MHz, an FMA counted as 2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ops = 4.0 * b * n * m * m
+    ops_ms = ops / (sms * 128 * clock_mhz * 1e6) * 1e3
+    nbytes = 4 * (b * n * 12 + 2 * b * m * 3 + 2 * b * n)
+    bytes_ms = nbytes / 3.35e12 * 1e3
+    print(f"kernel sym_moments timing at B={b} N={n} M={m}: {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms "
+          f"({ops:.3e} ops at {sms} SMs x 128 lanes x {clock_mhz} MHz)")
+    return {
+        "name": "sym_moments", "route": "cuda",
+        "source": "autoposeestimation_tpu_torch/csrc/sym_moments.cu",
+        "replaces": "autoposeestimation_tpu/ops/pallas_addloss.py:71",
+        "launches": None, "max_abs_err": worst, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None,
+    }
+
+
+# --- phase 3: serving ------------------------------------------------------------
+
+def headline_frames():
+    from autoposeestimation_tpu_torch.utils import synthetic
+    from autoposeestimation_tpu_torch.utils.io import Intrinsics
+
+    cfg, spheres, model_points = synthetic.headline_scene()
+    cams = synthetic.ring_cameras(cfg, np.zeros(3))[:4]
+    frames = []
+    for cam in cams:
+        color, depth, owner = synthetic.render(cfg, cam, spheres)
+        frames.append((color, np.round(depth).astype(np.uint16), owner))
+    meta = {"intr": Intrinsics(width=640, height=480, ppx=320.0, ppy=240.0,
+                               fx=cfg.fx, fy=cfg.fy),
+            "depth_scale": cfg.depth_scale}
+    return frames, meta, model_points, tuple(s.name for s in spheres)
+
+
+def check_prediction(out, hw) -> None:
+    check(set(out) == {"predictions", "cca_converged", "elapsed_times"},
+          f"full_prediction keys {set(out)}")
+    for cls, p in out["predictions"].items():
+        check(p["mask"].shape == hw, f"{cls}: mask shape")
+        check(np.isfinite(p["position"]).all(), f"{cls}: position")
+        check(abs(np.linalg.norm(p["rotation"]) - 1.0) < 1e-3,
+              f"{cls}: quaternion norm")
+
+
+def serving_phase(dev) -> None:
+    from autoposeestimation_tpu_torch.pipeline import predict
+
+    frames, meta, model_points, classes = headline_frames()
+    for stride in (8, 2):
+        models = predict.build_models(
+            len(classes), model_points, classes, num_points=1000, crop=320,
+            refine_iters=2, dtype=torch.bfloat16, emb_stride=stride,
+            device=dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for color, depth, _ in frames[:2]:          # warm-up
+            predict.full_prediction(color, depth, meta, models,
+                                    generator=gen)
+        # three windows of 8 frames: their spread is the host's noise
+        n_frames, fps = 8, []
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = [predict.full_prediction(frames[i % 4][0],
+                                            frames[i % 4][1], meta, models,
+                                            generator=gen)
+                    for i in range(n_frames)]
+            fps.append(n_frames / (time.perf_counter() - t0))
+            for out in outs:
+                check_prediction(out, (480, 640))
+        clocks = nvidia_smi("clocks.sm,power.draw")
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        color, depth, owner = frames[0]
+        for i, cls in enumerate(classes):
+            p = predict.pose_from_mask(color, depth, meta, models,
+                                       owner == i, cls, generator=gen)
+            check(p["count"] > 0, f"{cls}: empty mask")
+            check(np.isfinite(p["position"]).all(), f"{cls}: position")
+            check(abs(np.linalg.norm(p["rotation"]) - 1.0) < 1e-3,
+                  f"{cls}: quaternion norm")
+        median = float(np.median(fps))
+        print(f"serving emb_stride={stride}: 640x480 frames/s in 3 windows "
+              f"of {n_frames} frames {[round(f, 4) for f in fps]}, median "
+              f"{median:.4f} ({1e3 / median:.4f} ms/frame), found per frame "
+              f"{[len(o['predictions']) for o in outs[:4]]}, peak memory "
+              f"{peak_gib:.3f} GiB, SM clock and power after: {clocks}")
+        profile(lambda: [predict.full_prediction(c, d, meta, models,
+                                                 generator=gen)
+                         for c, d, _ in frames],
+                f"serving emb_stride={stride}, per frame", len(frames),
+                1e3 / median)
+
+
+# --- phase 4: card vs CPU ----------------------------------------------------------
+
+def card_vs_cpu_phase(dev) -> None:
+    from autoposeestimation_tpu_torch.pipeline import predict
+    from autoposeestimation_tpu_torch.utils import synthetic
+    from autoposeestimation_tpu_torch.utils.io import Intrinsics
+
+    h, w = 96, 128
+    cfg = synthetic.SynthConfig(img_h=h, img_w=w, fx=220.0, fy=220.0)
+    spheres = [synthetic.SphereObject("a", np.asarray([40.0, 0.0, 35.0]),
+                                      35.0, (200, 40, 40)),
+               synthetic.SphereObject("b", np.asarray([-50.0, 30.0, 28.0]),
+                                      28.0, (40, 60, 200))]
+    color, depth, owner = synthetic.render(
+        cfg, synthetic.ring_cameras(cfg, np.zeros(3))[0], spheres)
+    meta = {"intr": Intrinsics(width=w, height=h, ppx=w / 2, ppy=h / 2,
+                               fx=cfg.fx, fy=cfg.fy), "depth_scale": 0.001}
+    mp = np.random.default_rng(1).normal(size=(2, 60, 3)) * 0.05
+    u = np.random.default_rng(2).random((2, 64)).astype(np.float32)
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        models = predict.build_models(2, mp, ("a", "b"), num_points=64,
+                                      crop=32, dtype=torch.float32, seed=3,
+                                      device=d)
+        with torch.inference_mode():
+            frame = predict._frame_inputs(color, depth, meta, d)
+            raw = predict._predict_frame(models, *frame,
+                                         torch.as_tensor(u, device=d))
+        outs[d.type] = (
+            {k: v.cpu().numpy() for k, v in raw.items()},
+            predict.pose_from_mask(color, depth, meta, models, owner == 1,
+                                   "b", uniforms=u[1]))
+    (gpu, gpu_pfm), (cpu, cpu_pfm) = outs["cuda"], outs["cpu"]
+    for name in ("found", "masks", "argmax", "cca_converged"):
+        check(np.array_equal(gpu[name], cpu[name]), f"card vs CPU: {name}")
+    for name in ("quats", "positions"):
+        err = np.abs(gpu[name] - cpu[name]).max()
+        check(err <= POSE_ATOL, f"card vs CPU: {name} error {err}")
+    check(gpu_pfm["count"] == cpu_pfm["count"], "card vs CPU: count")
+    for name in ("position", "rotation"):
+        err = np.abs(gpu_pfm[name] - cpu_pfm[name]).max()
+        check(err <= POSE_ATOL, f"card vs CPU: pose_from_mask {name} {err}")
+    print(f"card vs CPU (f32, 96x128): masks/found/argmax equal, "
+          f"found {gpu['found'].tolist()}, max pose error "
+          f"{max(np.abs(gpu[n] - cpu[n]).max() for n in ('quats', 'positions')):.3e}")
+
+
+# --- phase 5: evaluation ------------------------------------------------------------
+
+def eval_batches(dev, model_points, n_batches=4, b=8, n=1000, m=500,
+                 crop=320):
+    """ADD(-S) test batches: objects at ~0.6 m in the camera frame, every
+    other sample symmetric."""
+    from autoposeestimation_tpu_torch.utils import transforms as T
+
+    rng = np.random.default_rng(4)
+    batches = []
+    for _ in range(n_batches):
+        obj = np.arange(b) % len(model_points)
+        model = model_points[obj][:, :m]
+        rot = T.quat_to_mat(torch.as_tensor(rng.normal(size=(b, 4)))).numpy()
+        trans = rng.normal(size=(b, 3)) * 0.05 + [0.0, 0.0, 0.6]
+        target = np.einsum("bmj,bij->bmi", model, rot) + trans[:, None]
+        cloud = target[:, rng.integers(0, m, n)] \
+            + rng.normal(size=(b, n, 3)) * 0.002
+        arrays = {"img": rng.normal(size=(b, 3, crop, crop)),
+                  "cloud": cloud, "target": target, "model_points": model,
+                  "target_t": trans}
+        batch = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+                 for k, v in arrays.items()}
+        batch["choose"] = torch.as_tensor(
+            rng.integers(0, crop * crop, (b, n)), device=dev)
+        batch["obj_idx"] = torch.as_tensor(obj, device=dev)
+        batch["is_sym"] = torch.as_tensor(np.arange(b) % 2 == 0, device=dev)
+        batches.append(batch)
+    return batches
+
+
+def eval_phase(dev):
+    from autoposeestimation_tpu_torch.experiments.eval import evaluate
+    from autoposeestimation_tpu_torch.models.common import init_like_flax
+    from autoposeestimation_tpu_torch.models.densefusion import (
+        PoseNet, PoseRefineNet)
+    from autoposeestimation_tpu_torch.ops import addloss
+    from autoposeestimation_tpu_torch.train import densefusion as dft
+    from autoposeestimation_tpu_torch.utils import synthetic
+
+    _, spheres, model_points = synthetic.headline_scene()
+    classes = tuple(s.name for s in spheres)
+    gen = torch.Generator().manual_seed(5)
+    posenet, refiner = PoseNet(5, torch.bfloat16), PoseRefineNet(
+        5, torch.bfloat16)
+    for net in (posenet, refiner):
+        init_like_flax(net, gen)
+        net.requires_grad_(False).eval().to(dev)
+    state = dft.EvalModels(posenet, refiner)
+    batches = eval_batches(dev, model_points)
+
+    # the main path: counts from 0 just before, read just after
+    addloss.moments_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = evaluate(state, lambda: iter(batches), classes)
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+    launches = addloss.moments_cuda.launches
+    check(launches == len(batches), f"sym_moments launches {launches}")
+    check(results["overall"]["n"] == 8 * len(batches), "evaluated samples")
+    for cls in classes:
+        check(np.isfinite(results[cls]["dis"]), f"{cls}: dis")
+
+    t0 = time.perf_counter()
+    evaluate(state, lambda: iter(batches), classes)
+    torch.cuda.synchronize()
+    steady_ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+    profile(lambda: evaluate(state, lambda: iter(batches), classes),
+            "evaluation, per batch", len(batches), steady_ms)
+    batch = batches[0]
+    got = dft.eval_step_full(posenet, refiner, batch, state.w)
+    with mock.patch.object(addloss, "moments_cuda", addloss.moments_plain):
+        want = dft.eval_step_full(posenet, refiner, batch, state.w)
+    err = (got[0] - want[0]).abs().max().item()
+    check(err <= DIS_ATOL, f"eval step, kernel vs plain: dis error {err}")
+    for g, w_ in zip(got[1:], want[1:]):
+        check(torch.equal(g, w_), "eval step, kernel vs plain: pose")
+    print(f"evaluation B=8 N=1000 M=500 crop 320 bf16, {len(batches)} "
+          f"batches: first run {first_ms:.4f} ms/batch, second run "
+          f"{steady_ms:.4f} ms/batch, sym_moments launches {launches} in "
+          f"the first run, overall p "
+          f"{results['overall']['p']}, kernel vs plain max|dis err| "
+          f"{err:.3e}")
+    return launches, err
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from autoposeestimation_tpu_torch.ops import kernel_build
+
+    dev = torch.device("cuda")
+    print(nvidia_smi("name,power.limit"))
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    t0 = time.perf_counter()
+    libs = kernel_build.build_all(["sym_moments"])
+    print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    for path in libs.values():
+        for line in path.with_name(path.name + ".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print("ptxas:", line.strip())
+
+    kernel = kernel_phase(dev, clock_mhz)
+    serving_phase(dev)
+    card_vs_cpu_phase(dev)
+    launches, err = eval_phase(dev)
+    kernel["launches"] = launches
+    kernel["max_abs_err"] = max(kernel["max_abs_err"], err)
+    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,74 @@
+"""The port's CUDA kernels against their plain PyTorch versions. Imports
+neither JAX nor the JAX package, so the tests that need the card (marker
+`cuda`) also run where only the port is installed:
+
+    python -m pytest --noconftest -q tests/test_torch_kernels.py
+
+On the CPU they skip; the wrapper checks run everywhere."""
+import numpy as np
+import pytest
+import torch
+
+from autoposeestimation_tpu_torch.ops import addloss
+from autoposeestimation_tpu_torch.utils import transforms as T
+
+
+def moment_inputs(seed, n, m):
+    """One sample: (rot (1, n, 3, 3), pred_t (1, n, 3), model, target
+    (1, m, 3)), the distribution of tests/test_pallas_addloss.py."""
+    rng = np.random.default_rng(seed)
+    quat = torch.from_numpy(rng.normal(size=(1, n, 4)).astype(np.float32))
+    pred_t = (rng.normal(size=(1, n, 3)) * 0.1
+              + rng.normal(size=(1, n, 3)) * 0.01).astype(np.float32)
+    model = (rng.normal(size=(1, m, 3)) * 0.05).astype(np.float32)
+    rot = T.quat_to_mat(torch.from_numpy(
+        rng.normal(size=4).astype(np.float32))).numpy()
+    target = (model @ rot.T + [0.01, 0.0, 0.02]).astype(np.float32)
+    return (T.quat_to_mat(quat).contiguous(), torch.from_numpy(pred_t),
+            torch.from_numpy(model), torch.from_numpy(target))
+
+
+def degenerate_inputs(n=64, m=100, seed=0):
+    """Wrap-padded duplicate targets on a sphere grown by 1 mm, candidates
+    near the identity: every matched distance is ~1 mm."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(m) + 0.5
+    phi, theta = np.arccos(1 - 2 * i / m), np.pi * (1 + 5 ** 0.5) * i
+    sphere = np.stack([np.sin(phi) * np.cos(theta),
+                       np.sin(phi) * np.sin(theta), np.cos(phi)], 1) * 0.05
+    rot = T.quat_to_mat(torch.from_numpy(rng.normal(size=4))).numpy()
+    target = ((sphere @ rot.T) * (0.051 / 0.05))[np.arange(m) % (m - 17)]
+    quat = np.tile([1.0, 0, 0, 0], (1, n, 1)) + rng.normal(size=(1, n, 4)) \
+        * 1e-3
+    pred_t = rng.normal(size=(1, n, 3)) * 1e-5
+    return (T.quat_to_mat(torch.from_numpy(quat.astype(np.float32)))
+            .contiguous(),
+            *(torch.from_numpy(a.astype(np.float32))
+              for a in (pred_t, sphere[None], target[None])))
+
+
+def test_kernel_wrapper_rejects_cpu_tensors():
+    """The wrapper launches for CUDA tensors or raises; it never falls back
+    to the plain version."""
+    args = moment_inputs(4, n=40, m=30)
+    launches = addloss.moments_cuda.launches
+    with pytest.raises(ValueError):
+        addloss.moments_cuda(*args)
+    assert addloss.moments_cuda.launches == launches
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    for args in (moment_inputs(5, n=1000, m=500), degenerate_inputs()):
+        rot, pred_t, model, target = [a.to(dev) for a in args]
+        launches = addloss.moments_cuda.launches
+        dis_k, var_k = addloss.moments(rot, pred_t, model, target)
+        dis_p, var_p = addloss.moments_plain(rot, pred_t, model, target)
+        torch.cuda.synchronize()
+        assert addloss.moments_cuda.launches == launches + 1
+        np.testing.assert_allclose(dis_k.cpu(), dis_p.cpu(), atol=1e-5)
+        np.testing.assert_allclose(var_k.clamp(min=0).sqrt().cpu(),
+                                   var_p.clamp(min=0).sqrt().cpu(), atol=1e-4)
