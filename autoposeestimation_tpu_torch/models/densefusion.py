@@ -5,7 +5,7 @@ Submodule names follow DenseFusion's `lib/network.py` (`cnn`, `feat.conv1`,
 `feat.e_conv1`, ..., heads `conv1_r`..`conv4_r`)."""
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -109,7 +109,8 @@ class PoseHead(nn.Module):
 class PoseNet(nn.Module):
     """(img (B, 3, S, S) normalized crops, cloud (B, N, 3), choose (B, N),
     obj_idx (B,)) -> (pred_r (B, N, 4), pred_t (B, N, 3), pred_c (B, N, 1),
-    emb (B, N, 32))."""
+    emb (B, N, 32)). `train=True` turns on the PSPNet's dropout, whose
+    masks come from `generator`."""
 
     def __init__(self, num_obj: int, dtype: torch.dtype = torch.float32,
                  emb_stride: int = 1, emb_resize_late: bool = False):
@@ -122,9 +123,10 @@ class PoseNet(nn.Module):
         self.head_t = PoseHead(3, num_obj, dtype)
         self.head_c = PoseHead(1, num_obj, dtype)
 
-    def forward(self, img, cloud, choose, obj_idx
+    def forward(self, img, cloud, choose, obj_idx, train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, ...]:
-        emb_map = self.cnn(img)
+        emb_map = self.cnn(img, train=train, generator=generator)
         if self.emb_stride > 1:
             emb = gather_embeddings_bilinear(emb_map, choose, img.shape[-1])
         else:

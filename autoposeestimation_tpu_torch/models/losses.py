@@ -1,6 +1,8 @@
-"""DenseFusion ADD(-S) losses (forward), the pose-extraction helpers and the
-ADD(-S) metric (port of the pose part of `autoposeestimation_tpu/models/
-losses.py`). Everything is batched over a leading sample axis."""
+"""DenseFusion ADD(-S) losses (differentiable), the pose-extraction helpers
+and the ADD(-S) metric (port of the pose part of `autoposeestimation_tpu/
+models/losses.py`). Everything is batched over a leading sample axis. The
+rebased clouds the losses return for the refiner are detached, as the JAX
+version stops their gradient."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -26,12 +28,14 @@ def _take(x: torch.Tensor, which: torch.Tensor) -> torch.Tensor:
 
 
 def pose_loss(pred_r, pred_t, pred_c, target, model_points, points, is_sym,
-              w: float = 0.015, with_sym: bool = True) -> PoseLossOut:
+              w: float = 0.015, with_sym: bool = True,
+              sym_bf16: bool = False) -> PoseLossOut:
     """DenseFusion estimator loss (lib/loss.py). pred_r (B, N, 4), pred_t
     (B, N, 3), pred_c (B, N, 1) or (B, N), target/model_points (B, M, 3),
     points (B, N, 3), is_sym (B,) bool. Symmetric samples take the matched
-    moments of `ops.addloss.sym_moments` (one call for the whole batch);
-    `with_sym=False` skips them."""
+    moments of `ops.addloss.sym_moments` (one call for the whole batch,
+    differentiable; `sym_bf16` runs its distances in bf16); `with_sym=False`
+    skips them."""
     if pred_c.dim() == 3:
         pred_c = pred_c[..., 0]
     rot = T.quat_to_mat(pred_r)                                # (B, N, 3, 3)
@@ -42,7 +46,8 @@ def pose_loss(pred_r, pred_t, pred_c, target, model_points, points, is_sym,
     std = per_point.std(dim=2, correction=1)
     if with_sym:
         dis_s, std_s = addloss.sym_moments(pred_r, pred_t, points,
-                                           model_points, target)
+                                           model_points, target,
+                                           bf16=sym_bf16)
         sym = is_sym.to(torch.bool)[:, None]
         dis = torch.where(sym, dis_s, dis)
         std = torch.where(sym, std_s, std)
@@ -57,7 +62,8 @@ def pose_loss(pred_r, pred_t, pred_c, target, model_points, points, is_sym,
     new_points = torch.matmul(points - best_t[:, None], best_rot)
     new_target = torch.matmul(target - best_t[:, None], best_rot)
     return PoseLossOut(loss.mean(), _take(dis[..., None], which)[:, 0],
-                       new_points, new_target, best_r, best_t)
+                       new_points.detach(), new_target.detach(), best_r,
+                       best_t)
 
 
 def refine_loss(pred_r, pred_t, target, model_points, points, is_sym,
@@ -85,7 +91,7 @@ def refine_loss(pred_r, pred_t, target, model_points, points, is_sym,
     dis = per_point.mean(dim=1)
     new_points = torch.matmul(points - pred_t[:, None], rot)
     new_target = torch.matmul(target - pred_t[:, None], rot)
-    return dis.mean(), dis, new_points, new_target
+    return dis.mean(), dis, new_points.detach(), new_target.detach()
 
 
 def estimator_prediction(pred_r, pred_t, pred_c, points, topk: int = 1):

@@ -3,11 +3,12 @@
 pyramid pooling (1, 2, 3, 6) -> 1x1 bottleneck to 1024 -> three
 (2x bilinear + conv3x3 + PReLU) stages -> 1x1 conv to 32 + log_softmax.
 Submodule names follow DenseFusion's `lib/pspnet.py` (`feats`, `psp.stages`,
-`psp.bottleneck`, `up_1..3`, `final`). Dropout is the identity at inference
-and is not represented."""
+`psp.bottleneck`, `up_1..3`, `final`). Dropout (training only) is
+elementwise like flax's, with its masks drawn from an explicit
+`torch.Generator`."""
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -15,6 +16,18 @@ from torch import nn
 
 from .common import Conv2d, PReLU, adaptive_avg_pool, resize_bilinear
 from .resnet import DilatedResNetNoBN
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """flax `nn.Dropout` in training: each element kept with probability
+    1 - rate and scaled by 1 / (1 - rate); rate 0 is the identity and draws
+    nothing."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class PSPModule(nn.Module):
@@ -60,7 +73,9 @@ class PSPNet(nn.Module):
     """Per-pixel 32-d log-softmax embeddings (B, 32, H/s, W/s) for
     `emb_stride` s in {1, 2, 4, 8}. The stride only drops 2x resizes (the
     parameter set is the same for every stride); `resize_late` puts the
-    remaining resizes at the last decoder stages instead of the first."""
+    remaining resizes at the last decoder stages instead of the first.
+    `train=True` applies dropout after the PSP module and after `up_1` and
+    `up_2` at `dropout_rates` (JAX pspnet.py:120-124)."""
 
     def __init__(self, embed_dim: int = 32, dtype: torch.dtype = torch.float32,
                  emb_stride: int = 1, resize_late: bool = False):
@@ -79,8 +94,16 @@ class PSPNet(nn.Module):
         self.up_2 = PSPUpsample(256, 64, dtype, do_resize[1])
         self.up_3 = PSPUpsample(64, 64, dtype, do_resize[2])
         self.final = Conv2d(64, embed_dim, 1, dtype=torch.float32)
+        self.dropout_rates = (0.3, 0.15, 0.15)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if train and generator is None:
+            raise ValueError("train=True needs a generator for dropout")
         p = self.psp(self.feats(x.to(self.dtype)))
-        p = self.up_3(self.up_2(self.up_1(p)))
+        for rate, up in zip(self.dropout_rates,
+                            (self.up_1, self.up_2, self.up_3)):
+            if train:
+                p = dropout(p, rate, generator)
+            p = up(p)
         return F.log_softmax(self.final(p.to(torch.float32)), dim=1)

@@ -1,6 +1,7 @@
-"""The weight bridge: the JAX package's flax variable trees (nested dicts of
-numpy arrays, as `train/checkpoints.load_checkpoint` returns them) -> the
-port's state_dicts for `UNet`, `PoseNet` and `PoseRefineNet`.
+"""The weight bridge between the JAX package's flax variable trees (nested
+dicts of numpy arrays, as `train/checkpoints.load_checkpoint` returns them)
+and the port's state_dicts for `UNet`, `PoseNet` and `PoseRefineNet`, both
+ways: `to_state_dict` reads a tree, `to_variables` writes one.
 
 Each model has a plan: one (flax path, state_dict key, conversion) entry per
 leaf. Conversions: conv kernel HWIO -> OIHW, dense kernel (I, O) -> (O, I),
@@ -136,6 +137,27 @@ def to_state_dict(variables: Dict[str, Any],
     return out
 
 
+_INVERSE = {"conv": lambda a: a.transpose(2, 3, 1, 0),
+            "dense": lambda a: a.T,
+            "prelu": lambda a: a.reshape(())}
+
+
+def to_variables(state: Dict[str, torch.Tensor],
+                 plan: List[Entry]) -> Dict[str, Any]:
+    """The inverse of `to_state_dict`: a state_dict -> the flax variable
+    tree (nested dicts of f32 numpy arrays)."""
+    tree: Dict[str, Any] = {}
+    for path, key, kind in plan:
+        arr = state[key].detach().to("cpu", torch.float32).numpy()
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        # np.array, not ascontiguousarray: that would make the () slope (1,)
+        node[path[-1]] = np.array(_INVERSE.get(kind, lambda a: a)(arr),
+                                  order="C")
+    return tree
+
+
 def unet_state_dict(variables):
     return to_state_dict(variables, unet_plan())
 
@@ -146,3 +168,11 @@ def posenet_state_dict(variables):
 
 def refiner_state_dict(variables):
     return to_state_dict(variables, refiner_plan())
+
+
+def posenet_variables(model: torch.nn.Module) -> Dict[str, Any]:
+    return to_variables(model.state_dict(), posenet_plan())
+
+
+def refiner_variables(model: torch.nn.Module) -> Dict[str, Any]:
+    return to_variables(model.state_dict(), refiner_plan())

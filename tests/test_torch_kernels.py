@@ -72,3 +72,39 @@ def test_kernel_matches_plain_on_card():
         np.testing.assert_allclose(dis_k.cpu(), dis_p.cpu(), atol=1e-5)
         np.testing.assert_allclose(var_k.clamp(min=0).sqrt().cpu(),
                                    var_p.clamp(min=0).sqrt().cpu(), atol=1e-4)
+
+
+def test_train_kernel_wrapper_rejects_cpu_tensors():
+    args = moment_inputs(4, n=40, m=30)
+    launches = addloss.moments_train_cuda.launches
+    with pytest.raises(ValueError):
+        addloss.moments_train_cuda(*args, bf16=True)
+    assert addloss.moments_train_cuda.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_train_kernel_matches_plain_on_card(bf16):
+    """dis within 1e-5, std within 1e-4; the precursors within 1e-5 except
+    for at most 0.1 % of candidates (at least one), where a near-tie flips
+    a match and moves one u_i / M, so within 4 / M everywhere."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    for args in (moment_inputs(5, n=1000, m=500), degenerate_inputs()):
+        rot, pred_t, model, target = [a.to(dev) for a in args]
+        m = model.shape[1]
+        launches = addloss.moments_train_cuda.launches
+        got = addloss.moments_train(rot, pred_t, model, target, bf16)
+        want = addloss.moments_train_plain(rot, pred_t, model, target, bf16)
+        torch.cuda.synchronize()
+        assert addloss.moments_train_cuda.launches == launches + 1
+        got, want = got.cpu().numpy()[0], want.cpu().numpy()[0]
+        assert not got[:, 26:].any()
+        np.testing.assert_allclose(got[:, 24], want[:, 24], atol=1e-5)
+        np.testing.assert_allclose(np.sqrt(np.maximum(got[:, 25], 0)),
+                                   np.sqrt(np.maximum(want[:, 25], 0)),
+                                   atol=1e-4)
+        off = np.abs(got[:, :24] - want[:, :24]).max(axis=1)
+        assert off.max() <= 4.0 / m, off.max()
+        assert (off > 1e-5).sum() <= max(1, len(off) // 1000), off
