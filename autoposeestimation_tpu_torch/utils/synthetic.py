@@ -1,12 +1,17 @@
-"""Ray-traced tabletop scenes (numpy copy of the scene part of
-`autoposeestimation_tpu/utils/synthetic.py`): the fixture of the port's
-tests and of `chip_smoke.py`. Robot frame in mm, depth in mm."""
+"""Ray-traced tabletop scenes and the synthetic on-disk dataset (numpy copy
+of `autoposeestimation_tpu/utils/synthetic.py`): the fixture of the port's
+tests and of `chip_smoke.py`. Robot frame in mm, depth in mm. The dataset
+is written through the port's own io (PNG codec included), so writing it
+needs no PIL."""
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+from . import io
 
 
 @dataclass
@@ -135,3 +140,114 @@ def headline_scene(num_classes: int = 5, img_hw: Tuple[int, int] = (480, 640),
                                           endpoint=False))
     ]
     return cfg, spheres, model_points
+
+
+def sphere_model_points(radius: float, n: int = 500, seed: int = 0
+                        ) -> np.ndarray:
+    """Fibonacci-sphere surface samples (mm, centered)."""
+    i = np.arange(n) + 0.5
+    phi = np.arccos(1 - 2 * i / n)
+    theta = np.pi * (1 + 5 ** 0.5) * i
+    return np.stack([radius * np.sin(phi) * np.cos(theta),
+                     radius * np.sin(phi) * np.sin(theta),
+                     radius * np.cos(phi)], axis=1)
+
+
+def make_dataset(root: str, objects: Sequence[SphereObject] = None,
+                 cfg: SynthConfig = None, dataset_name: str = "synth",
+                 p_test: float = 0.2) -> Dict:
+    """Write the full on-disk contract: per object a background and a
+    foreground run (colour, depth, meta), ground-truth labels in the gen,
+    pred and new_pred modes with pose-label metas, the model clouds and the
+    dataset lists. Returns a manifest dict."""
+    cfg = cfg or SynthConfig()
+    if objects is None:
+        objects = [
+            SphereObject("red_ball", np.asarray([40.0, 0.0, 35.0]), 35.0,
+                         (200, 40, 40)),
+            SphereObject("blue_ball", np.asarray([-50.0, 30.0, 28.0]), 28.0,
+                         (40, 60, 200)),
+        ]
+    intr = io.Intrinsics(width=cfg.img_w, height=cfg.img_h,
+                         ppx=cfg.img_w / 2.0, ppy=cfg.img_h / 2.0,
+                         fx=cfg.fx, fy=cfg.fy)
+    hand_eye = np.eye(4)
+    cams = ring_cameras(cfg, np.zeros(3))
+    manifest = {"objects": [], "cams": cams, "intr": intr, "cfg": cfg}
+
+    for obj in objects:
+        # this object alone on the table (one object per scan)
+        for run, spheres in (("background", []), ("foreground", [obj])):
+            run_dir = os.path.join(io.data_dir(root), obj.name, run)
+            label_run_dir = os.path.join(io.label_dir(root), obj.name, run)
+            os.makedirs(run_dir, exist_ok=True)
+            for vp, robot2cam in enumerate(cams):
+                color, depth, owner = render(cfg, robot2cam, spheres)
+                robot2end = robot2cam @ np.linalg.inv(hand_eye)
+                meta = {
+                    "joints": [0.0] * 6,
+                    "pose": {"x": float(robot2end[0, 3]),
+                             "y": float(robot2end[1, 3]),
+                             "z": float(robot2end[2, 3]),
+                             "a": 0.0, "b": 0.0, "c": 0.0},
+                    "object_pose": np.eye(4),
+                    "robot2endEff_tf": robot2end,
+                    "intr": intr,
+                    "depth_scale": cfg.depth_scale,
+                    "symmetric": obj.symmetric,
+                    "hand_eye_calibration": hand_eye,
+                    "view_point_id": vp,
+                }
+                stem = f"{vp:06d}"
+                io.write_png(os.path.join(run_dir, stem + ".color.png"), color)
+                io.write_png(os.path.join(run_dir, stem + ".depth.png"),
+                             np.round(depth).astype(np.uint16))
+                io.write_sample_meta(os.path.join(run_dir, stem + ".meta.json"),
+                                     meta)
+                if run == "foreground":
+                    mask = ((owner == 0).astype(np.uint8)) * 255
+                    for mode in ("gen", "pred", "new_pred"):
+                        io.write_png(os.path.join(
+                            label_run_dir, f"{stem}.{mode}.label.png"), mask)
+                    cam2robot = np.linalg.inv(robot2cam)
+                    robot2object = np.eye(4)
+                    robot2object[:3, 3] = obj.center
+                    # the camera-frame object pose, cam2robot @ robot2object
+                    cam2object = cam2robot @ robot2object
+                    io.write_pose_label_meta(
+                        os.path.join(label_run_dir, stem + ".meta.json"),
+                        position=cam2object[:3, 3],
+                        rotation=cam2object[:3, :3],
+                        cls_name=obj.name, cam2robot=cam2robot,
+                        robot2object=robot2object)
+
+        # model cloud (.xyz, mm, centered) and .ply in the robot frame
+        model = np.concatenate([sphere_model_points(r, 500) + (c - obj.center)
+                                for c, r, _ in object_spheres(obj)])[:1000]
+        pc_obj = os.path.join(io.pc_dir(root), obj.name)
+        io.write_xyz(os.path.join(pc_obj, obj.name + ".xyz"), model)
+        io.write_ply(os.path.join(pc_obj, obj.name + "_out.ply"),
+                     model + obj.center)
+        io.write_ply(os.path.join(pc_obj, obj.name + ".ply"), model)
+        manifest["objects"].append(obj)
+
+    # dataset lists (segmentation, pose_estimation), every-Nth test split
+    names = [o.name for o in objects]
+    for kind in ("segmentation", "pose_estimation"):
+        ds = io.dataset_dir(root, kind, dataset_name)
+        train, test = [], []
+        for obj in objects:
+            stems = [f"{obj.name}/foreground/{vp:06d}"
+                     for vp in range(cfg.n_viewpoints)]
+            n_test = max(int(len(stems) * p_test), 1)
+            step = max(len(stems) // n_test, 1)
+            for i, s in enumerate(stems):
+                (test if i % step == 0 and len(
+                    [t for t in test if t.startswith(obj.name)]) < n_test
+                 else train).append(s)
+        io.write_lines(os.path.join(ds, "classes.txt"), names)
+        io.write_lines(os.path.join(ds, "train_data_list.txt"), train)
+        io.write_lines(os.path.join(ds, "test_data_list.txt"), test)
+        io.write_lines(os.path.join(ds, "extra_train_data_list.txt"), [])
+    manifest["dataset_name"] = dataset_name
+    return manifest

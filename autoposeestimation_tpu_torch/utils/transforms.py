@@ -1,7 +1,8 @@
 """Rigid-transform algebra on tensors (port of
 `autoposeestimation_tpu/utils/transforms.py`, the functions the pose path
-uses). Quaternions are (w, x, y, z); every function takes arbitrary leading
-batch dimensions."""
+and the reconstruction use). Quaternions are (w, x, y, z), euler angles
+static-frame XYZ ('sxyz'); every function takes arbitrary leading batch
+dimensions."""
 from __future__ import annotations
 
 from typing import Optional
@@ -72,6 +73,38 @@ def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     ], dim=-1)
 
 
+def euler_to_mat(ai: torch.Tensor, aj: torch.Tensor,
+                 ak: torch.Tensor) -> torch.Tensor:
+    """Static-frame XYZ euler angles ('sxyz') -> rotation matrix
+    R = Rz(ak) @ Ry(aj) @ Rx(ai)."""
+    ci, si = torch.cos(ai), torch.sin(ai)
+    cj, sj = torch.cos(aj), torch.sin(aj)
+    ck, sk = torch.cos(ak), torch.sin(ak)
+    one, zero = torch.ones_like(ci), torch.zeros_like(ci)
+
+    def mat(rows):
+        return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+    rx = mat([[one, zero, zero], [zero, ci, -si], [zero, si, ci]])
+    ry = mat([[cj, zero, sj], [zero, one, zero], [-sj, zero, cj]])
+    rz = mat([[ck, -sk, zero], [sk, ck, zero], [zero, zero, one]])
+    return rz @ (ry @ rx)
+
+
+def mat_to_euler(m: torch.Tensor):
+    """Rotation matrix -> static-frame XYZ euler angles (ai, aj, ak)."""
+    sj = -m[..., 2, 0]
+    cj = torch.sqrt(torch.clamp(m[..., 0, 0] ** 2 + m[..., 1, 0] ** 2,
+                                min=1e-24))
+    aj = torch.atan2(sj, cj)
+    near_gimbal = cj < 1e-7
+    ai = torch.where(near_gimbal, torch.atan2(-m[..., 1, 2], m[..., 1, 1]),
+                     torch.atan2(m[..., 2, 1], m[..., 2, 2]))
+    ak = torch.where(near_gimbal, torch.zeros_like(aj),
+                     torch.atan2(m[..., 1, 0], m[..., 0, 0]))
+    return ai, aj, ak
+
+
 def make_tf(rot: Optional[torch.Tensor] = None,
             trans: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Homogeneous 4x4 transform(s) from a rotation and/or translation."""
@@ -86,6 +119,18 @@ def make_tf(rot: Optional[torch.Tensor] = None,
     if trans is not None:
         tf[..., :3, 3] = trans
     return tf
+
+
+def tf_inverse(tf: torch.Tensor) -> torch.Tensor:
+    """Invert rigid transform(s) (..., 4, 4)."""
+    rt = tf[..., :3, :3].transpose(-1, -2)
+    return make_tf(rt, -torch.einsum("...ij,...j->...i", rt, tf[..., :3, 3]))
+
+
+def apply_tf(tf: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Apply transform(s) (..., 4, 4) to points (..., N, 3)."""
+    return (torch.einsum("...ij,...nj->...ni", tf[..., :3, :3], points)
+            + tf[..., None, :3, 3])
 
 
 def pose_to_tf(quat: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,21 @@ Phases (any failure raises and the script exits non-zero):
      objects, bf16, crop 320, B=8, N=1000, M=500, `sym_bf16`), ms per step,
      launch counts, device busy share; one estimator step through the
      kernel against one through the plain version; a short two-phase
-     `train()` whose checkpoint the port's reader loads back.
+     `train()` whose checkpoint the port's reader loads back,
+  8. nearest-neighbour kernel: `nn_cuda` against `nn_plain` on mm-scale
+     clouds (N = M = 1024, 4096, 8192; N=1000 M=3000; 30 % and all
+     references invalid; duplicated references; queries equal to
+     references; clouds 500 mm from the origin), indices equal but at
+     near-ties, timed against its bound, the plain version and
+     `torch.cdist(...).min(1)`,
+  9. reconstruction: a synthetic 640x480 dataset of 30 ring views of a
+     40 mm ball with an 18 mm bump, `load_point_cloud` at the production
+     settings of `create_pose_data` and `create_pose_label` (seconds,
+     points per stage, nn launches per object and per ICP, PNG decode ms,
+     device busy share of one ICP merge), one `load_point_cloud` with its
+     own defaults (point-to-plane ICP and normals on the card), checks of
+     the cloud against the rendered spheres and of the labels, and the
+     small configuration (160x128, 12 views) on the card and on the CPU.
 Then one JSON line with the kernels' numbers, and last the JSON result line.
 Needs no network; imports nothing of JAX.
 """
@@ -691,6 +705,360 @@ def training_phase(dev):
     return train_launches
 
 
+# --- phase 8: nearest-neighbour kernel -------------------------------------------
+
+def ball_cloud(rng, k: int, center) -> np.ndarray:
+    """k points on a 40 mm ball around `center` (mm) with 0.5 mm noise, the
+    kind of cloud ICP registers."""
+    v = rng.normal(size=(k, 3))
+    v *= 40.0 / np.linalg.norm(v, axis=1, keepdims=True)
+    return (v + center + rng.normal(size=(k, 3)) * 0.5).astype(np.float32)
+
+
+def nn_cases(dev):
+    """(name, query (N, 3), ref (M, 3), ref_valid (M,) or None) on `dev`."""
+    rng = np.random.default_rng(12)
+    near = np.asarray([30.0, 10.0, 40.0])
+    cases = []
+    for n in (1024, 4096, 8192):
+        # a padded bucket: the last 10 % of the references invalid
+        cases.append((f"N=M={n}", ball_cloud(rng, n, near),
+                      ball_cloud(rng, n, near), np.arange(n) < n * 9 // 10))
+    cases.append(("N=1000 M=3000", ball_cloud(rng, 1000, near),
+                  ball_cloud(rng, 3000, near), None))
+    cases.append(("30% invalid", ball_cloud(rng, 2048, near),
+                  ball_cloud(rng, 2048, near), rng.random(2048) >= 0.3))
+    cases.append(("all invalid", ball_cloud(rng, 1024, near),
+                  ball_cloud(rng, 1024, near), np.zeros(1024, bool)))
+    base = ball_cloud(rng, 1024, near)
+    cases.append(("duplicated refs", ball_cloud(rng, 2048, near),
+                  np.concatenate([base, base]), None))
+    ref = ball_cloud(rng, 4096, near)
+    cases.append(("self-NN", ref.copy(), ref, None))
+    far = near + [500.0, 0.0, 0.0]
+    cases.append(("offset 500 mm", ball_cloud(rng, 4096, far),
+                  ball_cloud(rng, 4096, far), None))
+    return [(name, torch.as_tensor(q, device=dev), torch.as_tensor(r, device=dev),
+             None if v is None else torch.as_tensor(v, device=dev))
+            for name, q, r, v in cases]
+
+
+def check_nn(name, q, r, valid, got, want) -> float:
+    """Indices equal but at near-ties, d2 within the same band: a near-tie
+    is a pair whose exact d2 differ by less than 8 * 2^-24 * (|q|^2 +
+    |r|^2). Returns the largest |d2 difference| over finite entries."""
+    (idx_k, d2_k), (idx_p, d2_p) = got, want
+    q64 = q.double().cpu().numpy()
+    r64 = r.double().cpu().numpy()
+    ik, ip = idx_k.long().cpu().numpy(), idx_p.long().cpu().numpy()
+    dk, dp = d2_k.double().cpu().numpy(), d2_p.double().cpu().numpy()
+    if valid is not None and not valid.any().item():
+        check(not ik.any() and np.isinf(dk).all(),
+              f"nn {name}: expected index 0 and +inf")
+        check(np.array_equal(ik, ip) and np.array_equal(dk, dp),
+              f"nn {name}: plain version disagrees")
+        print(f"kernel nn {name} N={len(q64)} M={len(r64)}: index 0, d2 +inf "
+              f"everywhere, as the plain version")
+        return 0.0
+    if valid is not None:
+        check(valid.cpu().numpy()[ik].all(), f"nn {name}: invalid pick")
+    band = 8 * 2.0 ** -24 * (np.sum(q64 ** 2, 1) + np.sum(r64[ip] ** 2, 1))
+    exact_k = np.sum((q64 - r64[ik]) ** 2, 1)
+    exact_p = np.sum((q64 - r64[ip]) ** 2, 1)
+    flips = ik != ip
+    check(np.all(np.abs(exact_k - exact_p)[flips] < band[flips]),
+          f"nn {name}: an index differs beyond a near-tie")
+    err = np.abs(dk - dp)
+    check(np.all(err <= band), f"nn {name}: d2 error {err.max()}")
+    if name == "duplicated refs":
+        check(np.all(ik < len(r64) // 2), f"nn {name}: a later copy won")
+    print(f"kernel nn {name} N={len(q64)} M={len(r64)}: {int(flips.sum())} "
+          f"near-tie index flips, max|d2 err| {err.max():.3e} (band at most "
+          f"{band.max():.3e}), max|d2 - exact d2| "
+          f"{np.abs(dk - np.maximum(exact_k, 0)).max():.3e}")
+    return float(err.max())
+
+
+def nn_phase(dev, clock_mhz: float):
+    from autoposeestimation_tpu_torch.ops import knn
+
+    worst = 0.0
+    for name, q, r, valid in nn_cases(dev):
+        got = knn.nn_cuda(q, r, valid)
+        want = knn.nn_plain(q, r, valid)
+        torch.cuda.synchronize()
+        worst = max(worst, check_nn(name, q, r, valid, got, want))
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for name, q, r, valid in nn_cases(dev)[1:3]:          # 4096, 8192
+        n, m = q.shape[0], r.shape[0]
+        r_valid = r[valid].contiguous()
+        ms = cuda_ms(lambda: knn.nn_cuda(q, r, valid), 50)
+        plain_ms = cuda_ms(lambda: knn.nn_plain(q, r, valid), 3, 1)
+        lib_ms = cuda_ms(lambda: torch.cdist(q, r_valid).min(1), 50)
+        # 5 lane instructions per pair (fmul, 2 fma, fadd and fsub of the
+        # expansion; the compare rides along) at 128 FP32 lanes per SM per
+        # clock; bytes: 12 per query and 13 per reference in, 8 out
+        ops_ms = 5.0 * n * m / (sms * 128 * clock_mhz * 1e6) * 1e3
+        bytes_ms = (20.0 * n + 13.0 * m) / 3.35e12 * 1e3
+        rows.append((ms, plain_ms, lib_ms, max(ops_ms, bytes_ms),
+                     "operations" if ops_ms >= bytes_ms else "bytes"))
+        print(f"kernel nn timing at N=M={n}: {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, torch.cdist+min (2 calls) {lib_ms:.4f} ms, "
+              f"bound {max(ops_ms, bytes_ms):.4f} ms (operations "
+              f"{ops_ms:.4f}, bytes {bytes_ms:.4f})")
+    ms, plain_ms, lib_ms, bound_ms, bound_by = rows[0]     # N=M=4096
+    return {
+        "name": "nn", "route": "cuda",
+        "source": "autoposeestimation_tpu_torch/csrc/nn.cu",
+        "replaces": "autoposeestimation_tpu/ops/knn.py:119",
+        "launches": None, "max_abs_err": worst, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": lib_ms,
+    }
+
+
+# --- phase 9: reconstruction ------------------------------------------------------
+
+BALL_CENTERS = np.asarray([[30.0, 10.0, 40.0], [55.0, 35.0, 65.0]])
+BALL_RADII = np.asarray([40.0, 18.0])
+PRODUCTION = dict(mode="gen", n_viewpoints=30, min_friends=20, min_dist=5,
+                  nb_neighbors=20, threshold=10, voxel_size=2,
+                  voxel_size_out=5, icp_point2point=True,
+                  icp_point2plane=False)
+SMALL = dict(mode="gen", n_viewpoints=12, min_friends=5, min_dist=8,
+             nb_neighbors=10, threshold=10, voxel_size=3, voxel_size_out=6,
+             icp_point2plane=False)
+
+
+def write_ball_dataset(root: str, **cfg_kw) -> None:
+    from autoposeestimation_tpu_torch.utils import synthetic
+
+    ball = synthetic.SphereObject(
+        "ball", BALL_CENTERS[0], float(BALL_RADII[0]), (210, 50, 50),
+        parts=((tuple(BALL_CENTERS[1] - BALL_CENTERS[0]),
+                float(BALL_RADII[1])),))
+    synthetic.make_dataset(root, objects=[ball],
+                           cfg=synthetic.SynthConfig(**cfg_kw))
+
+
+def surface_error(points: np.ndarray) -> np.ndarray:
+    """min over the spheres of | |p - c_i| - r_i | (mm)."""
+    return np.min(np.abs(np.linalg.norm(
+        points[:, None] - BALL_CENTERS[None], axis=-1) - BALL_RADII), axis=1)
+
+
+def mean_nn(a: np.ndarray, b: np.ndarray) -> float:
+    """Mean distance from each point of a to its nearest point of b (f64)."""
+    return float(np.concatenate([np.sqrt(np.min(np.sum(
+        (a[i:i + 512, None] - b[None]) ** 2, -1), 1))
+        for i in range(0, len(a), 512)]).mean())
+
+
+def reconstruction_phase(dev):
+    import tempfile
+
+    from autoposeestimation_tpu_torch.labeling import pose_labels
+    from autoposeestimation_tpu_torch.ops import addloss, icp, knn
+    from autoposeestimation_tpu_torch.reconstruction import (
+        create_pointcloud as rec)
+    from autoposeestimation_tpu_torch.utils import io
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_ball_dataset(root, img_h=480, img_w=640, fx=600.0, fy=600.0,
+                           n_viewpoints=30)
+        write_s = time.perf_counter() - t0
+        data = os.path.join(io.data_dir(root), "ball", "foreground")
+        labels = os.path.join(io.label_dir(root), "ball", "foreground")
+        t0 = time.perf_counter()
+        for i in range(30):
+            io.read_label(os.path.join(labels, f"{i:06d}.gen.label.png"))
+            io.read_depth(os.path.join(data, f"{i:06d}.depth.png"))
+        decode_ms = 1e3 * (time.perf_counter() - t0) / 30
+
+        icps, merged_sizes = [], []
+        real_icp = icp.registration_icp
+
+        def counted_icp(source, *args, **kw):
+            res = real_icp(source, *args, **kw)
+            icps.append((source.shape[0], res.num_iterations))
+            return res
+
+        # the main path: counts from 0 just before, read just after
+        knn.nn_cuda.launches = 0
+        addloss.moments_cuda.launches = 0
+        addloss.moments_train_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.object(icp, "registration_icp", counted_icp):
+            down = rec.load_point_cloud(
+                "ball", io.pc_dir(root), root, **PRODUCTION,
+                progress=lambda run, idx, k: merged_sizes.append(k),
+                device=dev)
+        n_labels = pose_labels.create_pose_label(root, "ball", device=dev)
+        torch.cuda.synchronize()
+        object_s = time.perf_counter() - t0
+        launches = knn.nn_cuda.launches
+        others = (addloss.moments_cuda.launches,
+                  addloss.moments_train_cuda.launches)
+        check(launches > 0 and launches == sum(it + 1 for _, it in icps),
+              f"nn launches {launches} for ICPs {icps}")
+        check(others == (0, 0), f"sym_moments launches in reconstruction "
+              f"{others}")
+
+        pdir = os.path.join(io.pc_dir(root), "ball")
+        for fn in ("foreground.ply", "foreground.pcd", "ball_out.ply",
+                   "ball_out.pcd", "ball.ply", "ball.pcd", "ball.xyz"):
+            check(os.path.exists(os.path.join(pdir, fn)), f"missing {fn}")
+        out = io.read_ply(os.path.join(pdir, "ball_out.ply"))
+        xyz = io.read_xyz(os.path.join(pdir, "ball.xyz"))
+        err = surface_error(out)
+        near = float(np.mean(err <= 2 * PRODUCTION["voxel_size"]))
+        check(len(out) >= 1000, f"ball_out.ply has {len(out)} points")
+        check(near >= 0.95, f"{near:.4f} of ball_out.ply within "
+              f"{2 * PRODUCTION['voxel_size']} mm of the spheres")
+        check(0 < len(xyz) < 1000, f"ball.xyz has {len(xyz)} points")
+        check(n_labels == 30, f"create_pose_label wrote {n_labels}")
+        center = (out.min(0) + out.max(0)) / 2
+        worst_pos = 0.0
+        for i in range(30):
+            lab = io.read_pose_label_meta(os.path.join(
+                labels, f"{i:06d}.meta.json"))
+            cam2robot = np.linalg.inv(io.robot2cam_from_meta(
+                io.read_sample_meta(os.path.join(data,
+                                                 f"{i:06d}.meta.json"))))
+            check(np.allclose(lab["cam2robot"], cam2robot, atol=1e-9),
+                  f"label {i}: cam2robot")
+            want = cam2robot @ np.append(center, 1.0)
+            worst_pos = max(worst_pos,
+                            float(np.abs(lab["position"] - want[:3]).max()))
+        check(worst_pos <= 1e-3, f"label position error {worst_pos} mm")
+        sizes = [len(s) for s in (down, xyz)]
+        print(f"reconstruction 640x480, 30 views, production settings: "
+              f"{object_s:.2f} s per object (load_point_cloud + "
+              f"create_pose_label; dataset written in {write_s:.2f} s), PNG "
+              f"decode {decode_ms:.2f} ms per view (label + depth); points: "
+              f"merged after each view {merged_sizes}, ball_out.ply "
+              f"{len(out)}, ball.ply {sizes[0]}, ball.xyz {sizes[1]}; "
+              f"{near:.4f} of ball_out.ply within 4 mm of the spheres "
+              f"(median {np.median(err):.3f} mm); nn launches {launches} per "
+              f"object in {len(icps)} ICPs ({launches / len(icps):.2f} per "
+              f"ICP; sizes and iterations {icps}); label positions within "
+              f"{worst_pos:.2e} mm")
+
+        # where an object's time goes: the production run again, with host
+        # clocks around the per-view surfaces and the ICP merges (each ends
+        # in a copy to the host), and under the profiler for its busy share
+        spent = {"get_surface": 0.0, "_icp_merge": 0.0}
+        pixels, surfaces = [], []
+
+        def clocked(name):
+            real = getattr(rec, name)
+
+            def call(*args, **kw):
+                t = time.perf_counter()
+                out = real(*args, **kw)
+                spent[name] += time.perf_counter() - t
+                if name == "get_surface":   # (label, depth, ...) -> cloud
+                    pixels.append(int(np.count_nonzero(
+                        (args[0] != 0) & (args[1] != 0))))
+                    surfaces.append(len(out))
+                return out
+            return call
+
+        def production():
+            rec.load_point_cloud("ball", os.path.join(root, "again"), root,
+                                 **PRODUCTION, device=dev)
+
+        t0 = time.perf_counter()
+        with mock.patch.object(rec, "get_surface", clocked("get_surface")), \
+                mock.patch.object(rec, "_icp_merge", clocked("_icp_merge")):
+            production()
+        again_s = time.perf_counter() - t0
+        print(f"reconstruction time split (production run again, "
+              f"{again_s:.2f} s): per-view surfaces "
+              f"{spent['get_surface']:.2f} s (30 views), ICP merges "
+              f"{spent['_icp_merge']:.2f} s (29), the rest (PNG decode, view "
+              f"selection, files, the .xyz voxel search) "
+              f"{again_s - sum(spent.values()):.2f} s); points per view: "
+              f"masked depth pixels {pixels}, cleaned surface {surfaces}")
+        profile(production, "reconstruction, one object", 1, 1e3 * again_s)
+
+        # one ICP merge: its time, device busy share, and the share of the
+        # 3x3 SVD and determinant that each point-to-point step runs
+        views = []
+        for i in (0, 1):
+            meta = io.read_sample_meta(os.path.join(data,
+                                                    f"{i:06d}.meta.json"))
+            views.append(rec.get_surface(
+                io.read_label(os.path.join(labels, f"{i:06d}.gen.label.png")),
+                io.read_depth(os.path.join(data, f"{i:06d}.depth.png")
+                              ).astype(np.float64), meta["intr"],
+                io.robot2cam_from_meta(meta), 20, 5, 20, 2, dev))
+
+        def merge():
+            icps.clear()
+            with mock.patch.object(icp, "registration_icp", counted_icp):
+                return rec._icp_merge(views[0], views[1], 2, 10, device=dev)
+
+        merge()
+        merge_ms = timed_steps(merge, 3)
+        iters = sum(it for _, it in icps)
+        h = torch.randn(3, 3, dtype=torch.float64, device=dev)
+        svd_ms = timed_steps(lambda: torch.sign(torch.linalg.det(
+            torch.linalg.svd(h)[0])).item(), 50)
+        a6 = torch.eye(6, dtype=torch.float64, device=dev) * 2
+        solve_ms = timed_steps(lambda: torch.linalg.solve(
+            a6, a6[0]).sum().item(), 50)
+        profile(merge, "one ICP merge (point-to-point)", 1, merge_ms)
+        print(f"ICP merge of two {len(views[0])}/{len(views[1])}-point views: "
+              f"{merge_ms:.4f} ms, {iters} iterations; 3x3 SVD + det + read "
+              f"on the card {svd_ms:.4f} ms each, "
+              f"{100 * svd_ms * iters / merge_ms:.1f}% of the merge; the "
+              f"point-to-plane step's 6x6 solve + read {solve_ms:.4f} ms")
+
+        # load_point_cloud with its own defaults: point-to-plane ICP, normals
+        t0 = time.perf_counter()
+        launches0 = knn.nn_cuda.launches
+        cloud = rec.load_point_cloud("ball", os.path.join(root, "defaults"),
+                                     root, device=dev)
+        torch.cuda.synchronize()
+        check(len(cloud) > 0 and np.isfinite(cloud).all(),
+              "defaults: empty or non-finite cloud")
+        near = float(np.mean(surface_error(io.read_ply(os.path.join(
+            root, "defaults", "ball", "ball_out.ply"))) <= 10.0))
+        print(f"load_point_cloud with its defaults (10 views, voxel 5, "
+              f"point-to-point then point-to-plane ICP): "
+              f"{time.perf_counter() - t0:.2f} s, {len(cloud)} points, "
+              f"{near:.4f} of ball_out.ply within 10 mm of the spheres, nn "
+              f"launches {knn.nn_cuda.launches - launches0}")
+
+    # card against CPU, the small configuration
+    outs = []
+    with tempfile.TemporaryDirectory() as root:
+        write_ball_dataset(root)
+        for d in (dev, torch.device("cpu")):
+            t0 = time.perf_counter()
+            rec.load_point_cloud("ball", os.path.join(root, str(len(outs))),
+                                 root, **SMALL, device=d)
+            outs.append((io.read_ply(os.path.join(
+                root, str(len(outs)), "ball", "ball_out.ply")),
+                time.perf_counter() - t0))
+    (gpu, gpu_s), (cpu, cpu_s) = outs
+    count_rel = abs(len(gpu) - len(cpu)) / len(cpu)
+    sym = (mean_nn(gpu, cpu) + mean_nn(cpu, gpu)) / 2
+    check(count_rel <= 0.01, f"card vs CPU: {len(gpu)} vs {len(cpu)} points")
+    check(sym < 0.1 * SMALL["voxel_size"],
+          f"card vs CPU: symmetric mean NN distance {sym} mm")
+    print(f"reconstruction card vs CPU (160x128, 12 views, voxel 3): "
+          f"{len(gpu)} vs {len(cpu)} points, symmetric mean NN distance "
+          f"{sym:.3e} mm, equal clouds: {np.array_equal(gpu, cpu)}; "
+          f"{gpu_s:.2f} s on the card, {cpu_s:.2f} s on the CPU")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -701,7 +1069,7 @@ def main() -> int:
     print(nvidia_smi("name,power.limit"))
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     t0 = time.perf_counter()
-    libs = kernel_build.build_all(["sym_moments", "sym_moments_train"])
+    libs = kernel_build.build_all(["sym_moments", "sym_moments_train", "nn"])
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for path in libs.values():
         for line in path.with_name(path.name + ".log").read_text().splitlines():
@@ -716,7 +1084,9 @@ def main() -> int:
     kernel["max_abs_err"] = max(kernel["max_abs_err"], err)
     train_kernel = train_kernel_phase(dev, clock_mhz)
     train_kernel["launches"] = training_phase(dev)
-    print(json.dumps({"kernels": [kernel, train_kernel]}))
+    nn_kernel = nn_phase(dev, clock_mhz)
+    nn_kernel["launches"] = reconstruction_phase(dev)
+    print(json.dumps({"kernels": [kernel, train_kernel, nn_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from autoposeestimation_tpu_torch.ops import addloss
+from autoposeestimation_tpu_torch.ops import addloss, knn
 from autoposeestimation_tpu_torch.utils import transforms as T
 
 
@@ -108,3 +108,47 @@ def test_train_kernel_matches_plain_on_card(bf16):
         off = np.abs(got[:, :24] - want[:, :24]).max(axis=1)
         assert off.max() <= 4.0 / m, off.max()
         assert (off > 1e-5).sum() <= max(1, len(off) // 1000), off
+
+
+def nn_inputs(seed, n, m, invalid=0.1):
+    """(query (n, 3), ref (m, 3), ref_valid (m,)) on a 40 mm ball, mm."""
+    rng = np.random.default_rng(seed)
+
+    def ball(k):
+        v = rng.normal(size=(k, 3))
+        v *= 40.0 / np.linalg.norm(v, axis=1, keepdims=True)
+        return torch.from_numpy((v + [30.0, 10.0, 40.0]
+                                 + rng.normal(size=(k, 3)) * 0.5
+                                 ).astype(np.float32))
+
+    return ball(n), ball(m), torch.from_numpy(rng.random(m) >= invalid)
+
+
+def test_nn_wrapper_rejects_cpu_tensors():
+    q, r, valid = nn_inputs(0, 64, 80)
+    launches = knn.nn_cuda.launches
+    with pytest.raises(ValueError):
+        knn.nn_cuda(q, r, valid)
+    assert knn.nn_cuda.launches == launches
+
+
+@pytest.mark.cuda
+def test_nn_kernel_matches_plain_on_card():
+    """The kernel rounds as the plain version does, so indices and d2 are
+    equal; with every reference invalid both give index 0 and +inf."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    q, r, valid = nn_inputs(1, 4096, 4096)
+    cases = [(q, r, valid), (q[:1000], r[:3000], None), (r, r, None),
+             (q[:500], r[:700], torch.zeros(700, dtype=torch.bool)),
+             (q[:900], torch.cat([r[:512], r[:512]]), None)]
+    for q, r, valid in cases:
+        args = [a.to(dev) if a is not None else None for a in (q, r, valid)]
+        launches = knn.nn_cuda.launches
+        idx_k, d2_k = knn.nn(*args)
+        idx_p, d2_p = knn.nn_plain(*args)
+        torch.cuda.synchronize()
+        assert knn.nn_cuda.launches == launches + 1
+        assert torch.equal(idx_k, idx_p)
+        assert torch.equal(d2_k, d2_p)
