@@ -31,19 +31,22 @@ def evaluate(state: dft.EvalModels, test_batches: Callable[[], Iterable],
              classes, refine: bool = True, iteration: int = 2,
              success_threshold: float = 0.02) -> Dict:
     """Returns {cls: {'dis', 't_err', '<2', '>=2', 'p'}, 'overall':
-    {'p', 'n'}}."""
+    {'p', 'n'}}. `test_batches` returns a fresh iterator of batches in the
+    JAX package's layout (numpy or tensors, img (B, S, S, 3)), which go to
+    the device of `state.posenet`'s parameters."""
     results = {cls: {"dis": [], "t_err": [], "<2": 0, ">=2": 0}
                for cls in classes}
     use_refine = refine and state.refiner is not None
+    dev = next(state.posenet.parameters()).device
     for batch in test_batches():
+        batch = dft.to_device(batch, dev)
         dis, _, trans = dft.eval_step_full(
             state.posenet, state.refiner, batch, state.w, use_refine,
             iteration, state.with_sym)
         obj = batch["obj_idx"].cpu().numpy()
         if "target_t" in batch:
             t_err = np.linalg.norm(trans.cpu().numpy()
-                                   - np.asarray(batch["target_t"].cpu()),
-                                   axis=1)
+                                   - batch["target_t"].cpu().numpy(), axis=1)
         else:
             t_err = np.full(len(obj), np.nan)
         for d, te, o in zip(dis.cpu().numpy().tolist(), t_err.tolist(),

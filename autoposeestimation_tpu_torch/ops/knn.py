@@ -2,8 +2,9 @@
 
 1-nearest neighbour, the function of the TPU kernel `_nn_kernel`
 (knn.py:119, wrapper `nn_pallas`), in two implementations:
-  * `nn_cuda`: the hand-written kernel `csrc/nn.cu`; it counts its launches
-    in `nn_cuda.launches`,
+  * `nn_cuda`: the hand-written kernel `csrc/nn.cu` (a scan over S
+    contiguous reference ranges, `nn_splits`, then a merge in range order);
+    it counts its calls in `nn_cuda.launches`,
   * `nn_plain`: plain PyTorch in the same arithmetic, chunked over queries.
 `nn` picks by device: the kernel for CUDA tensors, the plain version for
 CPU tensors.
@@ -91,12 +92,36 @@ def nn_plain(query: torch.Tensor, ref: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = kernel_build.load(KERNEL)
-    lib.nn_search.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 \
+    lib.nn_splits.argtypes = [ctypes.c_int] * 3
+    lib.nn_splits.restype = ctypes.c_int
+    lib.nn_search.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p]
     lib.nn_search.restype = ctypes.c_int
     lib.nn_error_string.argtypes = [ctypes.c_int]
     lib.nn_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _launch_error(err: int) -> RuntimeError:
+    return RuntimeError("nn kernel launch failed: "
+                        + _library().nn_error_string(err).decode())
+
+
+@functools.lru_cache(maxsize=None)
+def _is_sm90(device: torch.device) -> bool:
+    return torch.cuda.get_device_capability(device) == (9, 0)
+
+
+def nn_splits(n: int, m: int, device: torch.device) -> int:
+    """S, the reference ranges of an (n, m) `nn_cuda` call on `device`
+    (chosen by `csrc/nn.cu`): range s holds references [floor(s M / S),
+    floor((s + 1) M / S)). `device` without an index is the current one."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    splits = _library().nn_splits(n, m, index)
+    if splits < 0:
+        raise _launch_error(-splits)
+    return splits
 
 
 def nn_cuda(query: torch.Tensor, ref: torch.Tensor,
@@ -110,6 +135,7 @@ def nn_cuda(query: torch.Tensor, ref: torch.Tensor,
     if ref.dim() != 2 or ref.shape[1] != 3:
         raise ValueError(f"ref must be (M, 3): {tuple(ref.shape)}")
     n, m = query.shape[0], ref.shape[0]
+    device = query.device
     tensors = [("query", query, torch.float32), ("ref", ref, torch.float32)]
     if ref_valid is not None:
         if ref_valid.shape != (m,):
@@ -117,25 +143,26 @@ def nn_cuda(query: torch.Tensor, ref: torch.Tensor,
                              f"{tuple(ref_valid.shape)}")
         tensors.append(("ref_valid", ref_valid, torch.bool))
     for name, t, dtype in tensors:
-        if t.device != query.device or t.device.type != "cuda":
-            raise ValueError(f"{name} must be on {query.device} (CUDA)")
+        if t.device != device or device.type != "cuda":
+            raise ValueError(f"{name} must be on {device} (CUDA)")
         if t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous {dtype}")
-    if torch.cuda.get_device_capability(query.device) != (9, 0):
+    if not _is_sm90(device):
         raise RuntimeError("the nn kernel is built for sm_90a")
-    idx = torch.empty(n, dtype=torch.int32, device=query.device)
-    d2 = torch.empty(n, dtype=torch.float32, device=query.device)
+    idx = torch.empty(n, dtype=torch.int32, device=device)
+    d2 = torch.empty(n, dtype=torch.float32, device=device)
     if n == 0:
         return idx, d2
-    with torch.cuda.device(query.device):
-        err = _library().nn_search(
-            query.data_ptr(), ref.data_ptr(),
-            None if ref_valid is None else ref_valid.data_ptr(),
-            idx.data_ptr(), d2.data_ptr(), n, m,
-            torch.cuda.current_stream(query.device).cuda_stream)
+    # each range's (raw d2 bits, first index) per query, 8 bytes
+    partial = torch.empty((nn_splits(n, m, device), n), dtype=torch.int64,
+                          device=device)
+    err = _library().nn_search(
+        query.data_ptr(), ref.data_ptr(),
+        None if ref_valid is None else ref_valid.data_ptr(),
+        partial.data_ptr(), idx.data_ptr(), d2.data_ptr(), n, m,
+        device.index, torch._C._cuda_getCurrentRawStream(device.index))
     if err != 0:
-        raise RuntimeError("nn kernel launch failed: "
-                           + _library().nn_error_string(err).decode())
+        raise _launch_error(err)
     nn_cuda.launches += 1
     return idx, d2
 

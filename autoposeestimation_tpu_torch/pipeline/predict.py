@@ -225,9 +225,14 @@ def pose_from_mask(image, depth, meta: Dict, models: PredictionModels, mask,
                    cls_name: str, generator: Optional[torch.Generator] = None,
                    uniforms=None, refine_iters: Optional[int] = None) -> Dict:
     """Pose stage only, for a given mask (H, W) of class `cls_name`:
-    {'position', 'rotation', 'count'}. `uniforms` is (num_points,)."""
+    {'position', 'rotation', 'count'}. `uniforms` is (num_points,). With
+    neither `generator` nor `uniforms` the draws come from a generator
+    seeded with 0, as the JAX side's PRNGKey(0), so repeated calls give the
+    same pose."""
     dev = models.device
     iters = models.refine_iters if refine_iters is None else refine_iters
+    if generator is None and uniforms is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
     with torch.inference_mode():
         image_t, depth_t, intr, scale = _frame_inputs(image, depth, meta, dev)
         m = torch.as_tensor(np.asarray(mask, bool), device=dev)[None]

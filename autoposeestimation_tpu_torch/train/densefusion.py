@@ -1,10 +1,13 @@
 """DenseFusion two-phase training and evaluation (port of
 `autoposeestimation_tpu/train/densefusion.py`).
 
-A batch is a dict of tensors on the networks' device: img (B, 3, S, S)
-normalized crops, cloud (B, N, 3), choose (B, N), target and model_points
-(B, M, 3), obj_idx (B,), is_sym (B,) bool, optionally target_t (B, 3);
-`to_device` makes one from a dict of numpy arrays in that layout.
+A batch comes in as the JAX package's Loader gives it, a dict of numpy
+arrays (or tensors): img (B, S, S, 3) normalized crops, channels last,
+cloud (B, N, 3), choose (B, N), target and model_points (B, M, 3), obj_idx
+(B,), is_sym (B,) bool, optionally target_t (B, 3). `train()` and
+`experiments/eval.py::evaluate` take that layout; `to_device` turns it into
+the steps' own (img (B, 3, S, S) contiguous, on the networks' device), which
+`estimator_step`, `refiner_step` and `eval_step_full` take.
 
 As in the JAX trainer: a true batch of 8 per optimizer step, the
 margin-triggered phase machine on the host (`TrainerState.
@@ -100,8 +103,10 @@ def set_lr(optimizer: ClippedAdam, lr: float) -> ClippedAdam:
 
 
 def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
-    """numpy (or tensor) batch -> tensors on `device`: floats as f32,
-    integers as int64, booleans kept."""
+    """A batch in the JAX package's layout (numpy arrays or tensors, img
+    (B, S, S, 3)) -> tensors on `device` in the steps' layout: img
+    (B, 3, S, S) contiguous, floats as f32, integers as int64, booleans
+    kept."""
     out = {}
     for key, val in batch.items():
         t = val if isinstance(val, torch.Tensor) else torch.as_tensor(
@@ -111,6 +116,11 @@ def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
         elif t.dtype != torch.bool:
             t = t.to(torch.int64)
         out[key] = t.to(device)
+    img = out["img"]
+    if img.dim() != 4 or img.shape[-1] != 3:
+        raise ValueError("img must be (B, S, S, 3), channels last: "
+                         f"{tuple(img.shape)}")
+    out["img"] = img.permute(0, 3, 1, 2).contiguous()
     return out
 
 
@@ -262,7 +272,8 @@ def train(state: TrainerState, train_batches: Callable[[], Iterable],
           log_dir: Optional[str] = None, epochs: Optional[int] = None,
           epoch_callback=None) -> TrainerState:
     """The two-phase loop. `train_batches`/`test_batches` return a fresh
-    iterator of numpy (or tensor) batches per epoch. Each epoch draws its
+    iterator of batches per epoch in the JAX package's layout (numpy or
+    tensors, img (B, S, S, 3); see `to_device`). Each epoch draws its
     dropout from a generator seeded by the epoch, so a run repeats. Artifacts:
     pose_model.npz / pose_refine_model.npz on the best test distance, and
     losses.json."""

@@ -12,10 +12,10 @@ Phases (any failure raises and the script exits non-zero):
      640x480, 1000 points, crop 320, 2 refine iterations, bf16, random
      weights from a seed) at emb_stride 8 and 2, frames/s,
   4. card vs CPU: the same f32 path at a small geometry on both devices,
-  5. evaluation: `evaluate` over ADD-S batches (B=8, N=1000, M=500, crop
-     320, symmetric and non-symmetric samples); the kernel launch counts are
-     read from this run, and the step is compared with the plain version on
-     the card,
+  5. evaluation: `evaluate` over ADD-S batches in the JAX package's layout
+     (img (B, S, S, 3); B=8, N=1000, M=500, crop 320, symmetric and
+     non-symmetric samples); the kernel launch counts are read from this
+     run, and the step is compared with the plain version on the card,
   6. training kernel: `moments_train_cuda` against `moments_train_plain` in
      both modes (f32, bf16) at the training shape and in the tie,
      degenerate-sphere and near-coincident cases, timed,
@@ -24,20 +24,31 @@ Phases (any failure raises and the script exits non-zero):
      launch counts, device busy share; one estimator step through the
      kernel against one through the plain version; a short two-phase
      `train()` whose checkpoint the port's reader loads back,
-  8. nearest-neighbour kernel: `nn_cuda` against `nn_plain` on mm-scale
-     clouds (N = M = 1024, 4096, 8192; N=1000 M=3000; 30 % and all
+  8. nearest-neighbour kernel: the ptxas report of its scan and merge
+     kernels (no spills); `nn_cuda` against `nn_plain` on mm-scale clouds
+     (N = M = 1024, 2048, 4096, 8192; N=1000 M=3000; 30 % and all
      references invalid; duplicated references; queries equal to
-     references; clouds 500 mm from the origin), indices equal but at
-     near-ties, timed against its bound, the plain version and
-     `torch.cdist(...).min(1)`,
+     references; clouds 500 mm from the origin; exact ties across the
+     kernel's reference ranges; wholly invalid ranges), indices and d2
+     equal; timed at N = M = 2048, 4096, 8192 with the host in the loop and
+     with the host queued ahead (device and host time per call) against its
+     bound, the plain version and `torch.cdist(...).min(1)`, with the
+     ranges S and the grid, beside two tiny kernels back to back (the floor
+     of a call of two kernels),
   9. reconstruction: a synthetic 640x480 dataset of 30 ring views of a
      40 mm ball with an 18 mm bump, `load_point_cloud` at the production
      settings of `create_pose_data` and `create_pose_label` (seconds,
      points per stage, nn launches per object and per ICP, PNG decode ms,
-     device busy share of one ICP merge), one `load_point_cloud` with its
-     own defaults (point-to-plane ICP and normals on the card), checks of
-     the cloud against the rendered spheres and of the labels, and the
-     small configuration (160x128, 12 views) on the card and on the CPU.
+     the nn kernels' device time per object, device busy share of one ICP
+     merge), one `load_point_cloud` with its own defaults (point-to-plane
+     ICP and normals on the card), checks of the cloud against the
+     rendered spheres and of the labels, the production run on the CPU
+     (every ICP's size and iteration count and the cloud equal to the
+     card's), and the small configuration (160x128, 12 views) on the card
+     and on the CPU.
+With `--nn-timing ROOT` it runs only phase 8's timing, of the port in the
+checkout at ROOT, and prints it as one JSON line: run it on two checkouts
+back to back on one card to compare them alike.
 Then one JSON line with the kernels' numbers, and last the JSON result line.
 Needs no network; imports nothing of JAX.
 """
@@ -85,11 +96,44 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile(fn, label: str, per: int, wall_ms: float) -> None:
+def queued_ms(fn, reps: int, clock_mhz: float, warmup: int = 2):
+    """(device ms, host ms) per call of `fn` over `reps` calls queued back
+    to back (CUDA events; host clock). A sleep kernel holds the stream
+    until the host has queued every call, so the device time leaves out the
+    host's own time per call (the wrapper, the launches), which is the
+    second number."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    sleep_s = 3 * (time.perf_counter() - t0) + 2e-3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # the sleep counts SM clocks: at most the maximum clock, so it lasts at
+    # least sleep_s
+    torch.cuda._sleep(int(sleep_s * clock_mhz * 1e6))
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    queued_s = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    check(queued_s < sleep_s, f"the host queued for {queued_s} s, longer "
+          f"than the {sleep_s} s head start")
+    return start.elapsed_time(end) / reps, 1e3 * queued_s / reps
+
+
+def profile(fn, label: str, per: int, wall_ms: float,
+            kernels: tuple = ()) -> None:
     """Device time that torch.profiler sees during `fn`, per unit (`per`
     units in the call), with the kernel count, the top kernels and the
     device's busy share of `wall_ms`, the unit's time measured without the
-    profiler."""
+    profiler; and the device time and count of the kernels whose names
+    contain one of `kernels`."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -105,13 +149,19 @@ def profile(fn, label: str, per: int, wall_ms: float) -> None:
         print(f"profile {label}: the profiler saw no device time")
         return
     device_ms = sum(e.self_device_time_total for e in events) / 1e3 / per
-    kernels = sum(e.count for e in events) / per
+    launched = sum(e.count for e in events) / per
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
     print(f"profile {label}: device busy {device_ms:.4f} ms of "
           f"{wall_ms:.4f} ms ({100 * device_ms / wall_ms:.1f}% busy), "
-          f"{kernels:.0f} kernels per unit; top: " + "; ".join(
+          f"{launched:.0f} kernels per unit; top: " + "; ".join(
               f"{e.key[:48]} {e.self_device_time_total / 1e3 / per:.4f} ms"
               for e in top))
+    for name in kernels:
+        hits = [e for e in events if name in e.key]
+        count = sum(e.count for e in hits) / per
+        hit_ms = sum(e.self_device_time_total for e in hits) / 1e3 / per
+        print(f"profile {label}: {name} {count:.0f} launches, {hit_ms:.4f} "
+              f"ms device time per unit")
 
 
 def check(cond: bool, what: str) -> None:
@@ -333,8 +383,9 @@ def card_vs_cpu_phase(dev) -> None:
 
 def eval_batches(dev, model_points, n_batches=4, b=8, n=1000, m=500,
                  crop=320):
-    """ADD(-S) test batches: objects at ~0.6 m in the camera frame, every
-    other sample symmetric."""
+    """ADD(-S) test batches in the JAX package's layout (img (B, S, S, 3)),
+    as tensors on `dev`: objects at ~0.6 m in the camera frame, every other
+    sample symmetric."""
     from autoposeestimation_tpu_torch.utils import transforms as T
 
     rng = np.random.default_rng(4)
@@ -347,7 +398,9 @@ def eval_batches(dev, model_points, n_batches=4, b=8, n=1000, m=500,
         target = np.einsum("bmj,bij->bmi", model, rot) + trans[:, None]
         cloud = target[:, rng.integers(0, m, n)] \
             + rng.normal(size=(b, n, 3)) * 0.002
-        arrays = {"img": rng.normal(size=(b, 3, crop, crop)),
+        # the Loader's layout: img channels last
+        arrays = {"img": np.ascontiguousarray(np.moveaxis(
+                      rng.normal(size=(b, 3, crop, crop)), 1, -1)),
                   "cloud": cloud, "target": target, "model_points": model,
                   "target_t": trans}
         batch = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
@@ -399,7 +452,7 @@ def eval_phase(dev):
     steady_ms = 1e3 * (time.perf_counter() - t0) / len(batches)
     profile(lambda: evaluate(state, lambda: iter(batches), classes),
             "evaluation, per batch", len(batches), steady_ms)
-    batch = batches[0]
+    batch = dft.to_device(batches[0], dev)
     got = dft.eval_step_full(posenet, refiner, batch, state.w)
     with mock.patch.object(addloss, "moments_cuda", addloss.moments_plain):
         want = dft.eval_step_full(posenet, refiner, batch, state.w)
@@ -601,9 +654,10 @@ def training_phase(dev):
     state = dft.create_trainer(5, cfg, dtype=torch.bfloat16, seed=6,
                                device=dev)
     batches = eval_batches(dev, model_points, n_batches=2)
+    steps = [dft.to_device(b, dev) for b in batches]     # the steps' layout
     gen = torch.Generator(device=dev).manual_seed(0)
     metrics, ref_metrics = [], []
-    est_batches, ref_batches = (itertools.cycle(batches) for _ in range(2))
+    est_batches, ref_batches = (itertools.cycle(steps) for _ in range(2))
 
     def est_step():
         metrics.append(dft.estimator_step(
@@ -666,7 +720,7 @@ def training_phase(dev):
         with (mock.patch.object(addloss, "moments_train_cuda",
                                 addloss.moments_train_plain) if plain
               else contextlib.nullcontext()):
-            got.append(dft.estimator_step(state.posenet, opt, batches[0],
+            got.append(dft.estimator_step(state.posenet, opt, steps[0],
                                           state.w, True, True, step_gen))
     (k, p) = got
     loss_rel = abs(k["loss"].item() / p["loss"].item() - 1)
@@ -717,10 +771,12 @@ def ball_cloud(rng, k: int, center) -> np.ndarray:
 
 def nn_cases(dev):
     """(name, query (N, 3), ref (M, 3), ref_valid (M,) or None) on `dev`."""
+    from autoposeestimation_tpu_torch.ops import knn
+
     rng = np.random.default_rng(12)
     near = np.asarray([30.0, 10.0, 40.0])
     cases = []
-    for n in (1024, 4096, 8192):
+    for n in (1024, 2048, 4096, 8192):
         # a padded bucket: the last 10 % of the references invalid
         cases.append((f"N=M={n}", ball_cloud(rng, n, near),
                       ball_cloud(rng, n, near), np.arange(n) < n * 9 // 10))
@@ -738,49 +794,120 @@ def nn_cases(dev):
     far = near + [500.0, 0.0, 0.0]
     cases.append(("offset 500 mm", ball_cloud(rng, 4096, far),
                   ball_cloud(rng, 4096, far), None))
+    # the kernel's own reference ranges at a production merge size: the
+    # reference before each range's start repeated at the start and queried
+    # there (exact ties across every boundary), and ranges 1, 2 and the last
+    # wholly invalid
+    n = m = 3000
+    splits = knn.nn_splits(n, m, dev)
+    starts = np.asarray([s * m // splits for s in range(1, splits)])
+    ref = ball_cloud(rng, m, near)
+    ref[starts] = ref[starts - 1]
+    tied = ref[starts - 1] + rng.normal(size=(len(starts), 3)).astype(
+        np.float32) * 1e-3
+    cases.append(("ties at range boundaries", np.concatenate(
+        [tied, ball_cloud(rng, n - len(starts), near)]), ref, None))
+    valid = np.ones(m, bool)
+    for s in (1, 2, splits - 1):
+        valid[s * m // splits:(s + 1) * m // splits] = False
+    cases.append(("invalid ranges", ball_cloud(rng, n, near),
+                  ball_cloud(rng, m, near), valid))
     return [(name, torch.as_tensor(q, device=dev), torch.as_tensor(r, device=dev),
              None if v is None else torch.as_tensor(v, device=dev))
             for name, q, r, v in cases]
 
 
 def check_nn(name, q, r, valid, got, want) -> float:
-    """Indices equal but at near-ties, d2 within the same band: a near-tie
-    is a pair whose exact d2 differ by less than 8 * 2^-24 * (|q|^2 +
-    |r|^2). Returns the largest |d2 difference| over finite entries."""
+    """Indices and d2 equal to the plain version's (the kernel rounds as it
+    does); prints the distance to the exact d2. Returns max |d2 - plain
+    d2|."""
     (idx_k, d2_k), (idx_p, d2_p) = got, want
-    q64 = q.double().cpu().numpy()
     r64 = r.double().cpu().numpy()
     ik, ip = idx_k.long().cpu().numpy(), idx_p.long().cpu().numpy()
     dk, dp = d2_k.double().cpu().numpy(), d2_p.double().cpu().numpy()
+    flips = int((ik != ip).sum())
+    err = float(np.abs(dk - dp)[dk != dp].max(initial=0.0))
+    check(flips == 0, f"nn {name}: {flips} indices differ")
+    check(err == 0.0, f"nn {name}: d2 differs by up to {err}")
     if valid is not None and not valid.any().item():
         check(not ik.any() and np.isinf(dk).all(),
               f"nn {name}: expected index 0 and +inf")
-        check(np.array_equal(ik, ip) and np.array_equal(dk, dp),
-              f"nn {name}: plain version disagrees")
-        print(f"kernel nn {name} N={len(q64)} M={len(r64)}: index 0, d2 +inf "
+        print(f"kernel nn {name} N={len(ik)} M={len(r64)}: index 0, d2 +inf "
               f"everywhere, as the plain version")
-        return 0.0
+        return err
     if valid is not None:
         check(valid.cpu().numpy()[ik].all(), f"nn {name}: invalid pick")
-    band = 8 * 2.0 ** -24 * (np.sum(q64 ** 2, 1) + np.sum(r64[ip] ** 2, 1))
-    exact_k = np.sum((q64 - r64[ik]) ** 2, 1)
-    exact_p = np.sum((q64 - r64[ip]) ** 2, 1)
-    flips = ik != ip
-    check(np.all(np.abs(exact_k - exact_p)[flips] < band[flips]),
-          f"nn {name}: an index differs beyond a near-tie")
-    err = np.abs(dk - dp)
-    check(np.all(err <= band), f"nn {name}: d2 error {err.max()}")
     if name == "duplicated refs":
         check(np.all(ik < len(r64) // 2), f"nn {name}: a later copy won")
-    print(f"kernel nn {name} N={len(q64)} M={len(r64)}: {int(flips.sum())} "
-          f"near-tie index flips, max|d2 err| {err.max():.3e} (band at most "
-          f"{band.max():.3e}), max|d2 - exact d2| "
-          f"{np.abs(dk - np.maximum(exact_k, 0)).max():.3e}")
-    return float(err.max())
+    exact = np.sum((q.double().cpu().numpy() - r64[ik]) ** 2, 1)
+    print(f"kernel nn {name} N={len(ik)} M={len(r64)}: 0 index flips, "
+          f"max|d2 err| {err}, max|d2 - exact d2| "
+          f"{np.abs(dk - np.maximum(exact, 0)).max():.3e}")
+    return err
+
+
+NN_TIMED = (2048, 4096, 8192)
+NN_BLOCK_QUERIES = 512    # queries per scan block: kThreads * kQueries, nn.cu
+
+
+def nn_timing(dev, clock_mhz: float) -> dict:
+    """`nn_cuda` at N = M in NN_TIMED (mm-scale balls, the last 10 % of the
+    references invalid, as a padded bucket), checked equal to `nn_plain`,
+    with three clocks: `loop_ms`, calls back to back with the host in the
+    loop (what ICP's loop sees); `device_ms` and `host_ms`, the device's
+    and the host's time per call with the host queued ahead (`queued_ms`);
+    and the plain version and `torch.cdist(...).min(1)` alike. Uses only
+    `nn_cuda` and `nn_plain`, so it times earlier versions of the port
+    too (`--nn-timing`)."""
+    from autoposeestimation_tpu_torch.ops import knn
+
+    rows = {}
+    for n in NN_TIMED:
+        rng = np.random.default_rng(n)
+        near = np.asarray([30.0, 10.0, 40.0])
+        q, r = (torch.as_tensor(ball_cloud(rng, n, near), device=dev)
+                for _ in range(2))
+        valid = torch.arange(n, device=dev) < n * 9 // 10
+        r_valid = r[valid].contiguous()
+        got, want = knn.nn_cuda(q, r, valid), knn.nn_plain(q, r, valid)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"nn at N=M={n}: differs from the plain version")
+
+        def kernel():
+            return knn.nn_cuda(q, r, valid)
+
+        def library():
+            return torch.cdist(q, r_valid).min(1)
+
+        dev_ms, host_ms = queued_ms(kernel, 100, clock_mhz)
+        lib_dev_ms, _ = queued_ms(library, 50, clock_mhz)
+        rows[n] = {"loop_ms": cuda_ms(kernel, 100), "device_ms": dev_ms,
+                   "host_ms": host_ms,
+                   "plain_ms": cuda_ms(lambda: knn.nn_plain(q, r, valid),
+                                       3, 1),
+                   "library_ms": cuda_ms(library, 50),
+                   "library_device_ms": lib_dev_ms}
+    return rows
 
 
 def nn_phase(dev, clock_mhz: float):
-    from autoposeestimation_tpu_torch.ops import knn
+    import re
+
+    from autoposeestimation_tpu_torch.ops import kernel_build, knn
+
+    # nvcc's -Xptxas -v report: per entry function, its spills and registers
+    lib = kernel_build.build(knn.KERNEL)
+    report = re.findall(
+        r"Compiling entry function '\w*?(nn_(?:partial|merge)_kernel)\w*'"
+        r".*?(\d+) bytes spill stores, (\d+) bytes spill loads"
+        r".*?Used (\d+) registers",
+        lib.with_name(lib.name + ".log").read_text(), re.S)
+    check(sorted(k for k, *_ in report) == ["nn_merge_kernel",
+                                            "nn_partial_kernel"],
+          f"ptxas report {report}")
+    for name, stores, loads, regs in report:
+        check(stores == loads == "0", f"{name}: spills {stores}, {loads}")
+        print(f"ptxas {name}: {regs} registers, 0 bytes spilled")
 
     worst = 0.0
     for name, q, r, valid in nn_cases(dev):
@@ -789,34 +916,64 @@ def nn_phase(dev, clock_mhz: float):
         torch.cuda.synchronize()
         worst = max(worst, check_nn(name, q, r, valid, got, want))
 
+    # the floor of a call of two kernels: two tiny PyTorch kernels queued
+    # back to back, timed alike
+    a, b = torch.zeros(16, device=dev), torch.zeros(16, device=dev)
+    floor_ms, floor_host_ms = queued_ms(lambda: (a.add_(1), b.add_(1)), 200,
+                                        clock_mhz)
+    print(f"two tiny kernels back to back: {floor_ms:.4f} ms device time, "
+          f"{floor_host_ms:.4f} ms host time")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rows = []
-    for name, q, r, valid in nn_cases(dev)[1:3]:          # 4096, 8192
-        n, m = q.shape[0], r.shape[0]
-        r_valid = r[valid].contiguous()
-        ms = cuda_ms(lambda: knn.nn_cuda(q, r, valid), 50)
-        plain_ms = cuda_ms(lambda: knn.nn_plain(q, r, valid), 3, 1)
-        lib_ms = cuda_ms(lambda: torch.cdist(q, r_valid).min(1), 50)
-        # 5 lane instructions per pair (fmul, 2 fma, fadd and fsub of the
-        # expansion; the compare rides along) at 128 FP32 lanes per SM per
-        # clock; bytes: 12 per query and 13 per reference in, 8 out
-        ops_ms = 5.0 * n * m / (sms * 128 * clock_mhz * 1e6) * 1e3
-        bytes_ms = (20.0 * n + 13.0 * m) / 3.35e12 * 1e3
-        rows.append((ms, plain_ms, lib_ms, max(ops_ms, bytes_ms),
-                     "operations" if ops_ms >= bytes_ms else "bytes"))
-        print(f"kernel nn timing at N=M={n}: {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, torch.cdist+min (2 calls) {lib_ms:.4f} ms, "
-              f"bound {max(ops_ms, bytes_ms):.4f} ms (operations "
-              f"{ops_ms:.4f}, bytes {bytes_ms:.4f})")
-    ms, plain_ms, lib_ms, bound_ms, bound_by = rows[0]     # N=M=4096
+    rows = nn_timing(dev, clock_mhz)
+    for n, t in rows.items():
+        # 5 lane instructions per pair (fmul, 2 fma, fadd and the last
+        # fma of the expansion; the compare rides along) at 128 FP32 lanes
+        # per SM per clock; bytes: 12 per query and 13 per reference in, 8
+        # out
+        ops_ms = 5.0 * n * n / (sms * 128 * clock_mhz * 1e6) * 1e3
+        bytes_ms = (20.0 * n + 13.0 * n) / 3.35e12 * 1e3
+        t["bound_ms"] = max(ops_ms, bytes_ms)
+        t["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+        splits = knn.nn_splits(n, n, dev)
+        blocks = -(-n // NN_BLOCK_QUERIES)
+        print(f"kernel nn timing at N=M={n}: {t['loop_ms']:.4f} ms a call "
+              f"with the host in the loop; {t['device_ms']:.4f} ms device "
+              f"time ({100 * t['bound_ms'] / t['device_ms']:.1f}% of the "
+              f"bound) and {t['host_ms']:.4f} ms host time with the host "
+              f"queued ahead; plain {t['plain_ms']:.4f} ms, torch.cdist+min "
+              f"(2 calls) {t['library_ms']:.4f} ms ({t['library_device_ms']:.4f}"
+              f" ms device time), bound {t['bound_ms']:.4f} ms (operations "
+              f"{ops_ms:.4f}, bytes {bytes_ms:.4f}); S={splits} ranges of "
+              f"~{n / splits:.1f} references, scan grid ({blocks}, {splits}) "
+              f"x 128 threads ({blocks * splits / sms:.2f} blocks per SM), "
+              f"merge grid {-(-8 * n // 256)} x 256 (8 threads a query)")
+    t = rows[4096]
     return {
         "name": "nn", "route": "cuda",
         "source": "autoposeestimation_tpu_torch/csrc/nn.cu",
         "replaces": "autoposeestimation_tpu/ops/knn.py:119",
-        "launches": None, "max_abs_err": worst, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": lib_ms,
+        "launches": None, "max_abs_err": worst, "ms": t["loop_ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "device_ms": t["device_ms"],
     }
+
+
+def nn_timing_main(root: str) -> int:
+    """`--nn-timing ROOT`: phase 8's timing of the port in the checkout at
+    ROOT (an earlier commit, say), printed as one JSON line, so that two
+    versions are timed alike, back to back on one card."""
+    sys.path.insert(0, os.path.abspath(root))
+    from autoposeestimation_tpu_torch.ops import kernel_build, knn
+
+    check(knn.__file__.startswith(os.path.abspath(root)),
+          f"imported {knn.__file__}, not the port under {root}")
+    kernel_build.build_all([knn.KERNEL])
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    rows = nn_timing(torch.device("cuda"), clock_mhz)
+    print(json.dumps({"root": root, "card": nvidia_smi("name,power.limit"),
+                      "nn": rows}))
+    return 0
 
 
 # --- phase 9: reconstruction ------------------------------------------------------
@@ -917,6 +1074,7 @@ def reconstruction_phase(dev):
         err = surface_error(out)
         near = float(np.mean(err <= 2 * PRODUCTION["voxel_size"]))
         check(len(out) >= 1000, f"ball_out.ply has {len(out)} points")
+        card_icps = list(icps)
         check(near >= 0.95, f"{near:.4f} of ball_out.ply within "
               f"{2 * PRODUCTION['voxel_size']} mm of the spheres")
         check(0 < len(xyz) < 1000, f"ball.xyz has {len(xyz)} points")
@@ -984,7 +1142,8 @@ def reconstruction_phase(dev):
               f"selection, files, the .xyz voxel search) "
               f"{again_s - sum(spent.values()):.2f} s); points per view: "
               f"masked depth pixels {pixels}, cleaned surface {surfaces}")
-        profile(production, "reconstruction, one object", 1, 1e3 * again_s)
+        profile(production, "reconstruction, one object", 1, 1e3 * again_s,
+                kernels=("nn_partial_kernel", "nn_merge_kernel"))
 
         # one ICP merge: its time, device busy share, and the share of the
         # 3x3 SVD and determinant that each point-to-point step runs
@@ -1035,6 +1194,24 @@ def reconstruction_phase(dev):
               f"{near:.4f} of ball_out.ply within 10 mm of the spheres, nn "
               f"launches {knn.nn_cuda.launches - launches0}")
 
+        # the production run on the CPU: the pipeline is deterministic
+        # across devices, so every ICP (size, iterations) and the cloud
+        # equal the card's
+        icps.clear()
+        t0 = time.perf_counter()
+        with mock.patch.object(icp, "registration_icp", counted_icp):
+            rec.load_point_cloud("ball", os.path.join(root, "cpu"), root,
+                                 **PRODUCTION, device=torch.device("cpu"))
+        cpu_s = time.perf_counter() - t0
+        cpu_out = io.read_ply(os.path.join(root, "cpu", "ball",
+                                           "ball_out.ply"))
+        check(icps == card_icps and np.array_equal(out, cpu_out),
+              f"card vs CPU at the production settings: ICPs {card_icps} vs "
+              f"{icps}, {len(out)} vs {len(cpu_out)} points")
+        print(f"reconstruction card vs CPU at the production settings: the "
+              f"same {len(icps)} ICPs (sizes and iterations) and equal "
+              f"clouds of {len(cpu_out)} points; {cpu_s:.2f} s on the CPU")
+
     # card against CPU, the small configuration
     outs = []
     with tempfile.TemporaryDirectory() as root:
@@ -1063,6 +1240,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--nn-timing"] and len(sys.argv) == 3:
+        return nn_timing_main(sys.argv[2])
+    check(len(sys.argv) == 1, f"usage: {sys.argv[0]} [--nn-timing ROOT]")
     from autoposeestimation_tpu_torch.ops import kernel_build
 
     dev = torch.device("cuda")
@@ -1085,7 +1265,10 @@ def main() -> int:
     train_kernel = train_kernel_phase(dev, clock_mhz)
     train_kernel["launches"] = training_phase(dev)
     nn_kernel = nn_phase(dev, clock_mhz)
-    nn_kernel["launches"] = reconstruction_phase(dev)
+    # each call is two kernels, a scan and its merge
+    nn_kernel["calls"] = reconstruction_phase(dev)
+    nn_kernel["launches"] = 2 * nn_kernel["calls"]
+    nn_kernel["kernels_per_call"] = 2
     print(json.dumps({"kernels": [kernel, train_kernel, nn_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -132,17 +132,39 @@ def test_nn_wrapper_rejects_cpu_tensors():
     assert knn.nn_cuda.launches == launches
 
 
+def split_cases(dev, n=3000, m=3000):
+    """Cases on the kernel's own reference ranges for an (n, m) call on
+    `dev`: the reference before each range's start repeated at the start
+    and queried there (exact ties across every boundary), and the ranges
+    1, 2 and the last one wholly invalid."""
+    q, r, _ = nn_inputs(2, n, m)
+    splits = knn.nn_splits(n, m, dev)
+    starts = torch.tensor([s * m // splits for s in range(1, splits)])
+    tied = r.clone()
+    tied[starts] = tied[starts - 1]
+    near = tied[starts - 1] + torch.from_numpy(np.random.default_rng(3).normal(
+        size=(len(starts), 3)).astype(np.float32)) * 1e-3
+    valid = torch.ones(m, dtype=torch.bool)
+    for s in (1, 2, splits - 1):
+        valid[s * m // splits:(s + 1) * m // splits] = False
+    return [(torch.cat([near, q[:n - len(starts)]]), tied, None),
+            (q, r, valid)]
+
+
 @pytest.mark.cuda
 def test_nn_kernel_matches_plain_on_card():
     """The kernel rounds as the plain version does, so indices and d2 are
-    equal; with every reference invalid both give index 0 and +inf."""
+    equal; with every reference invalid both give index 0 and +inf; exact
+    ties across the kernel's range boundaries go to the first index, and
+    wholly invalid ranges never win."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     dev = torch.device("cuda")
     q, r, valid = nn_inputs(1, 4096, 4096)
     cases = [(q, r, valid), (q[:1000], r[:3000], None), (r, r, None),
              (q[:500], r[:700], torch.zeros(700, dtype=torch.bool)),
-             (q[:900], torch.cat([r[:512], r[:512]]), None)]
+             (q[:900], torch.cat([r[:512], r[:512]]), None)] \
+        + split_cases(dev)
     for q, r, valid in cases:
         args = [a.to(dev) if a is not None else None for a in (q, r, valid)]
         launches = knn.nn_cuda.launches

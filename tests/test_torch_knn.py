@@ -120,6 +120,100 @@ def test_nn_plain_against_nn_xla(name):
         assert (differ & clamped).sum() > 0   # clamp-before-min occurs
 
 
+SPLITS = (1, 2, 3, 7)
+SPLIT_CASES = ["ties across ranges", "ties at range boundaries",
+               "all-invalid ranges", "all invalid", "self-NN", "M prime"]
+
+
+def range_bounds(m, splits):
+    """The kernel's reference ranges: [floor(s M / S), floor((s + 1) M / S))."""
+    return [(s * m // splits, (s + 1) * m // splits) for s in range(splits)]
+
+
+def make_split_case(name):
+    """(query, ref, ref_valid or None) whose exact ties and invalid
+    references fall on the ranges of every S in SPLITS."""
+    rng = np.random.default_rng(100 + SPLIT_CASES.index(name))
+    if name == "ties across ranges":
+        # every reference twice, the copy 300 places later, queried near
+        # each: the two copies' d2 are equal and the first must win
+        base = ball_cloud(rng, 300, NEAR)
+        near = base + rng.normal(size=base.shape).astype(np.float32) * 1e-3
+        return (np.concatenate([near, ball_cloud(rng, 200, NEAR)]),
+                np.concatenate([base, base]), None)
+    if name == "ties at range boundaries":
+        # the reference before each range's start repeated at the start
+        ref = ball_cloud(rng, 601, NEAR)
+        starts = sorted({a for s in SPLITS for a, _ in range_bounds(601, s)
+                         if a > 0})
+        for a in starts:
+            ref[a] = ref[a - 1]
+        near = ref[np.asarray(starts) - 1] + rng.normal(
+            size=(len(starts), 3)).astype(np.float32) * 1e-3
+        return np.concatenate([near, ball_cloud(rng, 300, NEAR)]), ref, None
+    if name == "all-invalid ranges":
+        # the first half invalid: whole ranges for S = 2, 3 and 7
+        return (ball_cloud(rng, 400, NEAR), ball_cloud(rng, 700, NEAR),
+                np.arange(700) >= 350)
+    if name == "all invalid":
+        return (ball_cloud(rng, 300, NEAR), ball_cloud(rng, 700, NEAR),
+                np.zeros(700, bool))
+    if name == "self-NN":
+        # queried at the references themselves, with a copy 1e-3 mm off in
+        # the later ranges: both raw d2 may be negative, and the more
+        # negative must win though it comes later
+        base = ball_cloud(rng, 500, NEAR)
+        shifted = base + rng.normal(size=base.shape).astype(np.float32) * 1e-3
+        return base.copy(), np.concatenate([base, shifted]), None
+    if name == "M prime":
+        return (ball_cloud(rng, 333, NEAR), ball_cloud(rng, 1009, NEAR),
+                rng.random(1009) >= 0.1)
+    raise KeyError(name)
+
+
+def split_scan(q, r, valid, splits):
+    """The kernel's rule emulated with `nn_plain`: each range's first index
+    of its raw (unclamped) minimum, the partials merged in range order with
+    strict <, then the clamp."""
+    best = torch.full((len(q),), torch.inf)
+    best_i = torch.zeros(len(q), dtype=torch.int32)
+    for a, b in range_bounds(len(r), splits):
+        if a == b:
+            continue
+        i, d = knn.nn_plain(t(q), t(r[a:b]),
+                            None if valid is None else t(valid[a:b]))
+        raw = torch.where(torch.isinf(d), torch.inf,
+                          torch.from_numpy(raw_d2(q, r[a:b], i.numpy())))
+        take = raw < best
+        best = torch.where(take, raw, best)
+        best_i = torch.where(take, i + a, best_i)
+    return best_i, torch.clamp(best, min=0.0)
+
+
+@pytest.mark.parametrize("splits", SPLITS)
+@pytest.mark.parametrize("name", SPLIT_CASES)
+def test_split_merge_equals_one_scan(name, splits):
+    """Scanning contiguous reference ranges and merging their partials in
+    range order with strict < gives `nn_plain`'s indices and d2 bit for
+    bit: ties across a range boundary go to the earlier range, an invalid
+    range never wins, negative raw d2 merge before the clamp."""
+    q, r, valid = make_split_case(name)
+    got_i, got_d = split_scan(q, r, valid, splits)
+    want_i, want_d = knn.nn_plain(t(q), t(r), t(valid))
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_d, want_d)
+    if name.startswith("ties"):
+        n_near = 300 if name == "ties across ranges" else len(q) - 300
+        tie = np.all(r[want_i[:n_near].numpy()]
+                     == r[want_i[:n_near].numpy() + (
+                         300 if name == "ties across ranges" else 1)], 1)
+        assert tie.all()          # each pick has an equal later twin
+    if name == "all invalid":
+        assert not got_i.any() and torch.isinf(got_d).all()
+    if name == "self-NN":
+        assert (raw_d2(q, r, got_i.numpy()) < 0).sum() >= 10
+
+
 def test_nn_dispatch_and_cpu_path():
     q, r, valid = make_case("30% invalid")
     got = knn.nn(t(q).double(), t(r), t(valid))      # cast to f32 first

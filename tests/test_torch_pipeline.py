@@ -1,8 +1,9 @@
 """The slice as a whole, port against the JAX package on the CPU in f32:
 `full_prediction` and `pose_from_mask` on a synthetic frame with the JAX
-draws handed over as `uniforms`, the evaluation step and `evaluate`, the
-checkpoint reader and the prediction loader. Masks, `found` and `choose`
-exactly; poses and distances within 1e-4 (network outputs agree to 2e-4)."""
+draws handed over as `uniforms`, the evaluation step and `evaluate` on the
+JAX package's batch layout (img (B, S, S, 3)), the checkpoint reader and
+the prediction loader. Masks, `found` and `choose` exactly; poses and
+distances within 1e-4 (network outputs agree to 2e-4)."""
 import os
 
 import jax
@@ -146,6 +147,18 @@ def test_pose_from_mask(variables):
     np.testing.assert_allclose(got["rotation"], want["rotation"], atol=ATOL)
 
 
+def test_pose_from_mask_repeats_without_generator(variables):
+    """Without `generator` and `uniforms` the draws come from a fixed seed,
+    as the JAX side's PRNGKey(0): two calls give the same pose."""
+    _, tm = build_pair(variables, 8)
+    image, depth, meta, owner, _ = frame()
+    first, again = (predict.pose_from_mask(image, depth, meta, tm, owner == 1,
+                                           "box") for _ in range(2))
+    assert first["count"] == again["count"] > 0
+    np.testing.assert_array_equal(first["position"], again["position"])
+    np.testing.assert_array_equal(first["rotation"], again["rotation"])
+
+
 def test_class_mask_sum_rule_rejects_confident_fragment():
     """The serving rule 'sum' picks the large body over a small, more
     confident fragment; 'mean_float' picks the fragment. Port and JAX agree
@@ -201,11 +214,8 @@ def eval_batch(seed, b=4, m=20):
 
 
 def to_port(batch):
-    out = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
-    out["img"] = out["img"].permute(0, 3, 1, 2).contiguous()
-    out["choose"] = out["choose"].long()
-    out["obj_idx"] = out["obj_idx"].long()
-    return out
+    """The numpy batch as CPU tensors, still in the JAX layout."""
+    return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
 
 
 @pytest.fixture(scope="module")
@@ -225,29 +235,37 @@ def test_eval_step_full(eval_pair, refine_start):
     batch = eval_batch(4)
     want = jtrain.eval_step_full(pose, refine, batch, 0.015, jpose, jref,
                                  refine_start, 2, True)
-    got = dft.eval_step_full(tpose, tref, to_port(batch), 0.015,
-                             refine_start, 2, True)
+    got = dft.eval_step_full(tpose, tref, dft.to_device(batch, "cpu"),
+                             0.015, refine_start, 2, True)
     for name, g, w_ in zip(("dis", "quat", "trans"), got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w_), atol=ATOL,
                                    err_msg=name)
 
 
-def test_evaluate(eval_pair):
+def assert_evaluate_matches(eval_pair, seeds, port_batch):
+    """The JAX `evaluate` on the numpy batches of `seeds` against the port's
+    on `port_batch` of each: counts, `p` and `overall` equal, `dis` and
+    `t_err` within ATOL."""
     (jpose, jref, pose, refine), (tpose, tref) = eval_pair
-    batches = [eval_batch(s) for s in (5, 6)]
+    batches = [eval_batch(s) for s in seeds]
     state = jtrain.TrainerState(cfg=jtrain.DFConfig(), posenet=jpose,
                                 refiner=jref, pose_vars=pose,
                                 refine_vars=refine, tx=None, opt_state=None)
     want = jeval.evaluate(state, lambda: iter(batches), ("mug", "box"))
     got = peval.evaluate(dft.EvalModels(tpose, tref),
-                         lambda: (to_port(b) for b in batches),
+                         lambda: (port_batch(b) for b in batches),
                          ("mug", "box"))
     assert got["overall"] == want["overall"]
+    assert got["overall"]["n"] == 4 * len(seeds)
     for cls in ("mug", "box"):
         for k in ("<2", ">=2", "p"):
             assert got[cls][k] == want[cls][k]
         for k in ("dis", "t_err"):
             np.testing.assert_allclose(got[cls][k], want[cls][k], atol=ATOL)
+
+
+def test_evaluate(eval_pair):
+    assert_evaluate_matches(eval_pair, (5, 6), to_port)
 
     rng = np.random.default_rng(7)
     q, pos = rng.normal(size=4), rng.normal(size=3)
@@ -257,6 +275,34 @@ def test_evaluate(eval_pair):
         np.testing.assert_allclose(
             peval.add_from_pose(q, pos, rot, tr, mp, sym),
             jeval.add_from_pose(q, pos, rot, tr, mp, sym), rtol=1e-6)
+
+
+def test_evaluate_on_loader_batches(eval_pair):
+    """The Loader's numpy batches (img (B, S, S, 3)) go unchanged to both
+    `evaluate`s."""
+    assert_evaluate_matches(eval_pair, (11, 12), lambda b: b)
+
+
+def test_to_device_takes_channels_last():
+    """A channels-last batch, as numpy arrays or as CPU tensors, becomes the
+    same channels-first batch; a channels-first img is refused."""
+    batch = eval_batch(13)
+    from_numpy = dft.to_device(batch, "cpu")
+    from_tensors = dft.to_device(to_port(batch), "cpu")
+    assert set(from_numpy) == set(from_tensors) == set(batch)
+    for key, val in from_numpy.items():
+        assert torch.equal(val, from_tensors[key]), key
+    img = from_numpy["img"]
+    assert img.shape == (4, 3, CROP, CROP) and img.is_contiguous()
+    np.testing.assert_array_equal(img.numpy(),
+                                  np.moveaxis(batch["img"], -1, 1))
+    assert from_numpy["choose"].dtype == from_numpy["obj_idx"].dtype \
+        == torch.int64
+    assert from_numpy["cloud"].dtype == torch.float32
+    assert from_numpy["is_sym"].dtype == torch.bool
+    with pytest.raises(ValueError, match="channels last"):
+        dft.to_device({**batch, "img": np.moveaxis(batch["img"], -1, 1)},
+                      "cpu")
 
 
 def test_checkpoint_round_trip(tmp_path, eval_pair):
@@ -272,7 +318,7 @@ def test_checkpoint_round_trip(tmp_path, eval_pair):
     assert set(ck["variables"]) == set(pose)
     loaded = PoseNet(K).eval()
     loaded.load_state_dict(weights.posenet_state_dict(ck["variables"]))
-    b = to_port(eval_batch(8))
+    b = dft.to_device(eval_batch(8), "cpu")
     with torch.no_grad():
         args = (b["img"], b["cloud"], b["choose"], b["obj_idx"])
         for g, w_ in zip(loaded(*args), tpose(*args)):

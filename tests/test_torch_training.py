@@ -32,7 +32,7 @@ ATOL = 2e-4   # network outputs, the torch-vs-flax figure
 
 
 def make_batch(seed):
-    """A numpy batch in the port's layout (img channels first), one
+    """A numpy batch in the JAX package's layout (img channels last), one
     symmetric and one non-symmetric sample at camera depth."""
     rng = np.random.default_rng(seed)
     model = (rng.normal(size=(B, M, 3)) * 0.05).astype(np.float32)
@@ -51,7 +51,8 @@ def make_batch(seed):
     cloud = target[:, rng.integers(0, M, N)] + rng.normal(size=(B, N, 3)) \
         * 0.002
     return {
-        "img": rng.normal(size=(B, 3, CROP, CROP)).astype(np.float32),
+        "img": np.ascontiguousarray(np.moveaxis(
+            rng.normal(size=(B, 3, CROP, CROP)), 1, -1)).astype(np.float32),
         "cloud": cloud.astype(np.float32),
         "choose": rng.integers(0, CROP * CROP, (B, N)).astype(np.int32),
         "target": target.astype(np.float32),
@@ -63,8 +64,7 @@ def make_batch(seed):
 
 
 def jax_args(batch):
-    img = np.ascontiguousarray(np.moveaxis(batch["img"], 1, -1))
-    return img, batch["cloud"], batch["choose"], batch["obj_idx"]
+    return batch["img"], batch["cloud"], batch["choose"], batch["obj_idx"]
 
 
 @pytest.fixture(scope="module")
