@@ -18,7 +18,9 @@ Phases (any failure raises and the script exits non-zero):
      run, and the step is compared with the plain version on the card,
   6. training kernel: `moments_train_cuda` against `moments_train_plain` in
      both modes (f32, bf16) at the training shape and in the tie,
-     degenerate-sphere and near-coincident cases, timed,
+     degenerate-sphere and near-coincident cases; its ptxas report (no
+     spills) and launch geometry; output hashes, timed with the host in
+     the loop and queued ahead,
   7. training: `estimator_step`s and `refiner_step`s at full width (5
      objects, bf16, crop 320, B=8, N=1000, M=500, `sym_bf16`), ms per step,
      launch counts, device busy share; one estimator step through the
@@ -48,7 +50,9 @@ Phases (any failure raises and the script exits non-zero):
      and on the CPU.
 With `--nn-timing ROOT` it runs only phase 8's timing, of the port in the
 checkout at ROOT, and prints it as one JSON line: run it on two checkouts
-back to back on one card to compare them alike.
+back to back on one card to compare them alike. `--train-timing ROOT` does
+the same for phase 6's training kernel, with a SHA-256 of its output on
+every case in both modes (equal hashes: equal outputs, bit for bit).
 Then one JSON line with the kernels' numbers, and last the JSON result line.
 Needs no network; imports nothing of JAX.
 """
@@ -519,9 +523,9 @@ def mirror_case(dev, b=8, n=1000, m=500):
         for a in (rot, pred_t, model, target))
 
 
-def train_kernel_phase(dev, clock_mhz: float):
-    from autoposeestimation_tpu_torch.ops import addloss
-
+def train_cases(dev):
+    """(name, rot, pred_t, model, target): phase 6's cases, the training
+    shape (B=8, N=1000, M=500) first."""
     rng = np.random.default_rng(9)
     cases = moment_cases(dev) + [camera_case(dev), mirror_case(dev)]
     # each predicted point ~2e-4 m from its target, under the expansion
@@ -533,6 +537,143 @@ def train_kernel_phase(dev, clock_mhz: float):
                   torch.eye(3, device=dev).expand(1, 1000, 3, 3).contiguous(),
                   *(torch.as_tensor(a.astype(np.float32), device=dev)
                     for a in (pred_t, model, model + [0.1, 0.0, 0.0]))))
+    return cases
+
+
+TRAIN_TIMED = ("eval_shape", "camera_depth")   # both at B=8, N=1000, M=500
+
+
+def train_timing(dev, clock_mhz: float, moments_train_cuda) -> dict:
+    """The SHA-256 of `moments_train_cuda`'s output bytes on each case of
+    `train_cases` in both modes (f32, bf16), and its time on the cases in
+    TRAIN_TIMED with the host in the loop (`cuda_ms`) and with the host
+    queued ahead (`queued_ms`: `device_ms`, `host_ms`). Uses only
+    `moments_train_cuda`, so it times earlier versions of the port too
+    (`--train-timing`); equal hashes are equal outputs, bit for bit."""
+    import hashlib
+
+    hashes, times = {}, {}
+    for name, rot, pred_t, model, target in train_cases(dev):
+        for bf16 in (False, True):
+            key = f"{name} {'bf16' if bf16 else 'f32'}"
+
+            def call():
+                return moments_train_cuda(rot, pred_t, model, target, bf16)
+
+            hashes[key] = hashlib.sha256(
+                call().cpu().numpy().tobytes()).hexdigest()
+            if name in TRAIN_TIMED:
+                device_ms, host_ms = queued_ms(call, 20, clock_mhz)
+                times[key] = {"cuda_ms": cuda_ms(call, 20),
+                              "device_ms": device_ms, "host_ms": host_ms}
+    return {"sha256": hashes, "timing": times}
+
+
+def scan_loop_sass(path) -> dict:
+    """The scan loop of a built training kernel (`cuobjdump -sass`), per
+    mode, with its static instructions (every path of its body), point
+    pairs (one FMUL a pair in either mode), instructions a pair,
+    conditional branches other than its back edge, and its opcodes. Empty
+    without cuobjdump."""
+    import collections
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    found = {}
+    for body in re.split(r"\n\s*Function : ", text)[1:]:
+        mode = re.search(r"sym_moments_train_kernelILb(\d)", body.split()[0])
+        if not mode:
+            continue
+        code, at = [], {}
+        for line in body.splitlines():
+            ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if ins:
+                at[int(ins.group(1), 16)] = len(code)
+                code.append(ins.group(2))
+        # a loop: a branch back to an earlier (or its own) address
+        loops = []
+        for end, ins in enumerate(code):
+            jump = re.search(r"\bBRA\s+(?:`\()?(0x[0-9a-f]+)", ins)
+            if jump and at.get(int(jump.group(1), 16), end + 1) <= end:
+                loops.append((at[int(jump.group(1), 16)], end))
+
+        def ops(loop):
+            return [re.sub(r"^@!?U?P\w+\s+", "", code[k]).split()[0]
+                    .split(".")[0] for k in range(loop[0], loop[1] + 1)]
+
+        # the scan: an innermost loop that reads shared memory and neither
+        # stages (LDG, STS) nor divides or reduces (MUFU, SHFL)
+        scans = [lp for lp in loops
+                 if not any(lp[0] <= a and e <= lp[1] and (a, e) != lp
+                            for a, e in loops)
+                 and "LDS" in ops(lp)
+                 and not {"LDG", "STS", "MUFU", "SHFL"} & set(ops(lp))]
+        check(bool(scans), f"no scan loop in the SASS of {path}")
+        loop = max(scans, key=lambda lp: ops(lp).count("FMUL"))
+        names = ops(loop)
+        pairs = names.count("FMUL")
+        found["bf16" if mode.group(1) == "1" else "f32"] = {
+            "instructions": len(names), "pairs": pairs,
+            "per_pair": len(names) / max(pairs, 1),
+            "branches": sum(code[k].startswith("@") and " BRA " in code[k]
+                            for k in range(loop[0], loop[1])),
+            "ops": dict(collections.Counter(names))}
+    return found
+
+
+def train_kernel_report(b: int, n: int, m: int) -> dict:
+    """ptxas's report of the training kernel per mode (no spills), its scan
+    loop's SASS (no branch), and the launch's geometry at (b, n, m):
+    blocks per SM, the grid and its waves."""
+    import ctypes
+    import re
+
+    from autoposeestimation_tpu_torch.ops import addloss, kernel_build
+
+    path = kernel_build.build(addloss.TRAIN_KERNEL)
+    report = re.findall(
+        r"Compiling entry function '\w*sym_moments_train_kernelILb(\d)\w*'"
+        r".*?(\d+) bytes spill stores, (\d+) bytes spill loads"
+        r".*?Used (\d+) registers",
+        path.with_name(path.name + ".log").read_text(), re.S)
+    check(sorted(mode for mode, *_ in report) == ["0", "1"],
+          f"ptxas report {report}")
+    sass = scan_loop_sass(path)
+    for name, loop in sass.items():
+        print(f"sass sym_moments_train {name}: scan loop of "
+              f"{loop['instructions']} instructions for {loop['pairs']} "
+              f"pairs ({loop['per_pair']:.2f} a pair), {loop['branches']} "
+              f"conditional branches besides its back edge; {loop['ops']}")
+        check(loop["branches"] == 0,
+              f"sym_moments_train {name}: a branch in the scan loop")
+    lib = ctypes.CDLL(str(path))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    geometry = {}
+    for mode, stores, loads, regs in report:
+        name = "bf16" if mode == "1" else "f32"
+        check(stores == loads == "0",
+              f"sym_moments_train {name}: spills {stores}, {loads}")
+        per_sm = lib.sym_moments_train_blocks_per_sm(m, int(mode))
+        check(per_sm > 0, f"sym_moments_train_blocks_per_sm: {per_sm}")
+        # one block per (candidate, sample)
+        geometry[name] = {"registers": int(regs), "blocks_per_sm": per_sm,
+                          "grid": [n, b], "waves": b * n / (per_sm * sms),
+                          "sass_per_pair": sass.get(name, {}).get("per_pair")}
+        print(f"ptxas sym_moments_train {name}: {regs} registers, 0 bytes "
+              f"spilled; at B={b} N={n} M={m}: {per_sm} blocks per SM, grid "
+              f"({n}, {b}) x 128 threads, {b * n / (per_sm * sms):.2f} waves")
+    return geometry
+
+
+def train_kernel_phase(dev, clock_mhz: float):
+    from autoposeestimation_tpu_torch.ops import addloss
+
+    cases = train_cases(dev)
     worst = 0.0
     for name, rot, pred_t, model, target in cases:
         m = model.shape[1]
@@ -591,11 +732,19 @@ def train_kernel_phase(dev, clock_mhz: float):
     _, rot, pred_t, model, target = cases[0]
     b, n = rot.shape[:2]
     m = model.shape[1]
+    geometry = train_kernel_report(b, n, m)
+    timing = train_timing(dev, clock_mhz, addloss.moments_train_cuda)
+    for key, sha in timing["sha256"].items():
+        print(f"kernel sym_moments_train {key}: output sha256 {sha}")
+    for key, t in timing["timing"].items():
+        print(f"kernel sym_moments_train {key} timing: {t['cuda_ms']:.4f} "
+              f"ms with the host in the loop, {t['device_ms']:.4f} ms device "
+              f"and {t['host_ms']:.4f} ms host time queued ahead")
     times = {}
     for bf16 in (False, True):
         times[bf16] = (
-            cuda_ms(lambda: addloss.moments_train_cuda(
-                rot, pred_t, model, target, bf16), 20),
+            timing["timing"][f"eval_shape {'bf16' if bf16 else 'f32'}"]
+            ["cuda_ms"],
             cuda_ms(lambda: addloss.moments_train_plain(
                 rot, pred_t, model, target, bf16), 3, 1))
     # least work per point pair (the per-point work is O(N M)), FP32 lanes
@@ -624,7 +773,7 @@ def train_kernel_phase(dev, clock_mhz: float):
         "launches": None, "max_abs_err": worst, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": max(ops_ms[True], bytes_ms),
         "bound_by": "operations" if ops_ms[True] >= bytes_ms else "bytes",
-        "library_ms": None,
+        "library_ms": None, "geometry": geometry,
     }
 
 
@@ -699,7 +848,7 @@ def training_phase(dev):
     check(all(torch.isfinite(mt["dis"]).item() for mt in ref_metrics),
           "refiner metrics")
     profile(lambda: [est_step() for _ in range(2)],
-            "training estimator step", 2, est_ms)
+            "training estimator step", 2, est_ms, ("sym_moments_train",))
     profile(lambda: [ref_step() for _ in range(2)],
             "training refiner step", 2, ref_ms)
     print(f"training B=8 N=1000 M=500 crop 320 bf16 sym_bf16: estimator "
@@ -976,6 +1125,25 @@ def nn_timing_main(root: str) -> int:
     return 0
 
 
+def train_timing_main(root: str) -> int:
+    """`--train-timing ROOT`: the training kernel of the port in the
+    checkout at ROOT (an earlier commit, say) on phase 6's cases, built by
+    this script: output hashes and times, printed as one JSON line, so
+    that two versions are compared alike, back to back on one card."""
+    sys.path.insert(0, os.path.abspath(root))
+    from autoposeestimation_tpu_torch.ops import addloss, kernel_build
+
+    check(addloss.__file__.startswith(os.path.abspath(root)),
+          f"imported {addloss.__file__}, not the port under {root}")
+    path = kernel_build.build(addloss.TRAIN_KERNEL)
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    result = train_timing(torch.device("cuda"), clock_mhz,
+                          addloss.moments_train_cuda)
+    print(json.dumps({"root": root, "card": nvidia_smi("name,power.limit"),
+                      **result, "sass": scan_loop_sass(path)}))
+    return 0
+
+
 # --- phase 9: reconstruction ------------------------------------------------------
 
 BALL_CENTERS = np.asarray([[30.0, 10.0, 40.0], [55.0, 35.0, 65.0]])
@@ -1242,7 +1410,10 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--nn-timing"] and len(sys.argv) == 3:
         return nn_timing_main(sys.argv[2])
-    check(len(sys.argv) == 1, f"usage: {sys.argv[0]} [--nn-timing ROOT]")
+    if sys.argv[1:2] == ["--train-timing"] and len(sys.argv) == 3:
+        return train_timing_main(sys.argv[2])
+    check(len(sys.argv) == 1,
+          f"usage: {sys.argv[0]} [--nn-timing ROOT | --train-timing ROOT]")
     from autoposeestimation_tpu_torch.ops import kernel_build
 
     dev = torch.device("cuda")

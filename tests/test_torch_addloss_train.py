@@ -258,6 +258,163 @@ def test_bf16_forward_without_grad_is_train_kernel_moments():
                                atol=DIS_ATOL)
 
 
+# --- the training kernel's scan (csrc/sym_moments_train.cu) -------------------
+
+def bf16_round(x):
+    return torch.from_numpy(np.asarray(x, np.float32)).bfloat16().float() \
+        .numpy()
+
+
+def staged_scan_values(points, target, mode):
+    """(values (P, M), pp (P,) or None, staged targets (M, 3)) as the
+    kernel stages and scans them. bf16 mode: q = bf16(p), the target as
+    -2 bf16(t) and bf16(|t|^2), values (q.(-2t)) + |t|^2 with one rounding a
+    step (bf16 x bf16 products are exact in f32, so each FMA is the product
+    and an add) and d2 = fl(value + pp), pp = bf16(|p|^2). f32 mode: d2 of
+    the direct form; this test holds the scan's logic for given values, so
+    the f32 value needs no FMA."""
+    if mode == "f32":
+        d = points[:, None, :] - target[None]
+        d2 = (d[..., 2] * d[..., 2] + d[..., 1] * d[..., 1]) \
+            + d[..., 0] * d[..., 0]
+        return d2.astype(np.float32), None, target
+    q = bf16_round(points)
+    tq = (-2.0 * bf16_round(target)).astype(np.float32)
+    tw = bf16_round((target[:, 0] * target[:, 0]
+                     + target[:, 1] * target[:, 1])
+                    + target[:, 2] * target[:, 2])
+    v = q[:, None, 0] * tq[None, :, 0]
+    v = v + q[:, None, 1] * tq[None, :, 1]
+    v = v + q[:, None, 2] * tq[None, :, 2]
+    pp = bf16_round((points[:, 0] * points[:, 0]
+                     + points[:, 1] * points[:, 1])
+                    + points[:, 2] * points[:, 2])
+    return (v + tw[None]).astype(np.float32), pp, tq
+
+
+def one_scan(d2, tgt):
+    """The one-pass running-tie scan (the kernel's form before the grouped
+    scan): per point the minimum, reset on d2 < best, and the sum and count
+    of the targets with d2 == best."""
+    p = d2.shape[0]
+    best = np.full(p, np.inf, np.float32)
+    sums = np.zeros((p, 3), np.float32)
+    cnt = np.zeros(p, np.float32)
+    for j in range(d2.shape[1]):
+        lt, le = d2[:, j] < best, d2[:, j] <= best
+        best = np.where(lt, d2[:, j], best)
+        sums = np.where(lt[:, None], np.float32(0), sums)
+        sums = np.where(le[:, None], sums + tgt[j], sums)
+        cnt = np.where(lt, np.float32(0), cnt)
+        cnt = np.where(le, cnt + np.float32(1), cnt)
+    return best, sums, cnt
+
+
+def grouped_scan(values, pp, tgt, group):
+    """The kernel's scan: per group of `group` targets (padded with +inf) the
+    fminf minimum of the values, + pp once a group, then with selects the
+    least group value bestd, the first group below all before it and the
+    last group at or below bestd; after the scan, the targets from the
+    first to the last group with d2 == bestd, summed in increasing j from
+    zero, the minimum's bits from the first of them (with no finite value
+    the first group stays 0). Returns those and each point's collected
+    range."""
+    p, m = values.shape
+    m_pad = -(-m // group) * group
+    padded = np.full((p, m_pad), np.inf, np.float32)
+    padded[:, :m] = values
+    bestd = np.full(p, np.inf, np.float32)
+    first = np.zeros(p, np.int64)
+    last = np.zeros(p, np.int64)
+    for g in range(0, m_pad, group):
+        low = np.fmin.reduce(padded[:, g:g + group], axis=1)
+        d = low if pp is None else low + pp
+        first = np.where(d < bestd, g, first)
+        last = np.where(d <= bestd, g, last)
+        bestd = np.fmin(bestd, d)
+    lo, hi = first, np.minimum(last + group, m)
+    d2 = values if pp is None else values + pp[:, None]
+    best = np.full(p, np.inf, np.float32)
+    sums = np.zeros((p, 3), np.float32)
+    cnt = np.zeros(p, np.float32)
+    for j in range(m):
+        eq = (j >= lo) & (j < hi) & (d2[:, j] == bestd)
+        best = np.where(eq & (cnt == 0), d2[:, j], best)
+        sums = np.where(eq[:, None], sums + tgt[j], sums)
+        cnt = np.where(eq, cnt + np.float32(1), cnt)
+    return (best, sums, cnt), hi - lo
+
+
+def tie_scan_case(name, p=48, m=100):
+    """(values, pp, staged targets) of a named case of the scan test."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    points = (rng.normal(size=(p, 3)) * 0.05 + [0, 0, 0.6]).astype(np.float32)
+    target = (rng.normal(size=(m, 3)) * 0.05 + [0, 0, 0.6]).astype(np.float32)
+    if name == "random":
+        return staged_scan_values(points, target, "bf16")
+    if name == "random f32":
+        return staged_scan_values(points, target, "f32")
+    if name == "ties across groups":
+        # wrap-padded duplicates: every point's minimum repeats 37 apart
+        return staged_scan_values(points, target[np.arange(m) % 37], "bf16")
+    if name == "ties after + pp":
+        # distinct values that fl(1 + value) merges
+        values = (rng.integers(0, 40, (p, m)) * 1e-8).astype(np.float32)
+        return values, np.ones(p, np.float32), target
+    if name == "M not a multiple of G":
+        values, pp, tgt = staged_scan_values(points, target[:61], "bf16")
+        values[:, 60] = values.min(1)     # a tie in the padded last group
+        return values, pp, tgt
+    if name == "all equal":
+        return np.full((p, m), 0.25, np.float32), None, target
+    if name == "+-0 minimum":
+        # f32-mode values with both zeros at the minimum, in either order
+        values = rng.uniform(0.1, 1.0, (p, m)).astype(np.float32)
+        zero_first = rng.integers(0, m // 2 - 10, p)
+        zero_then = rng.integers(m // 2 + 10, m, p)
+        rows = np.arange(p)
+        values[rows, zero_first] = np.where(rows % 2, -0.0, 0.0)
+        values[rows, zero_then] = np.where(rows % 2, 0.0, -0.0)
+        return values, None, target
+    if name == "no finite value":
+        # +inf ties (as one scan counts them), whole groups of NaN first,
+        # and rows of NaN only (no match: count 0)
+        values = np.full((p, m), np.inf, np.float32)
+        values[: p // 2, ::3] = np.nan
+        values[: p // 4, :16] = np.nan
+        values[p - 4:] = np.nan
+        return values, None, target
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("group", [4, 8, 16])
+@pytest.mark.parametrize("name", [
+    "random", "random f32", "ties across groups", "ties after + pp",
+    "M not a multiple of G", "all equal", "+-0 minimum", "no finite value"])
+def test_grouped_tie_scan_equals_one_scan(name, group):
+    """The kernel's grouped scan with its after-scan collection gives the
+    one-pass running-tie scan's minimum, target sums and count bit for bit
+    (so every training row is the one-pass kernel's), and the collection
+    visits one group unless exact ties span groups."""
+    values, pp, tgt = tie_scan_case(name)
+    d2 = values if pp is None else values + pp[:, None]
+    want = one_scan(d2, tgt)
+    got, span = grouped_scan(values, pp, tgt, group)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32))
+    ties = np.sum(d2 == want[0][:, None], axis=1)
+    assert (ties >= 1).all() or name == "no finite value"
+    if name in ("random", "random f32"):
+        assert (ties == 1).all() and (span <= group).all()
+    if name in ("ties across groups", "all equal", "+-0 minimum"):
+        assert (ties >= 2).all() and (span > group).all()
+    if name == "ties after + pp":
+        assert (ties >= 2).all() and len(np.unique(values.min(1))) > 1
+    if name == "+-0 minimum":      # the first zero's sign, as in one scan
+        np.testing.assert_array_equal(np.signbit(got[0]),
+                                      np.arange(len(values)) % 2 == 1)
+
+
 # --- losses -------------------------------------------------------------------
 
 def loss_batch(seed, b=4, n=32, m=20):
