@@ -8,17 +8,45 @@
 // two-pass sample variance var = sum_i (dmin_i - dis)^2 / max(M - 1, 1).
 //
 // Bound: operations. B*N*M*M point pairs (2e9 at the evaluation shape
-// 8 x 1000 x 500) against ~0.5 MB of inputs and outputs. The least work is
-// the expansion form ||t||^2 - 2 p.t (3 FMA) plus a min per pair; this
-// kernel uses the direct form (p - t)^2 (3 sub, 1 mul, 2 FMA, 1 min), which
-// avoids the expansion's cancellation at small distances, and accepts
-// ~1.75x the instructions. Design: one block per (sample, tile of
-// candidates); the sample's targets and model points are staged once in
-// shared memory as float4 and reused by every candidate of the tile; each
-// thread keeps kPts predicted points in registers, so each broadcast
-// shared-memory read of a target feeds kPts distance evaluations; dmin
-// stays in shared memory for the second (centering) pass. Nothing but the
-// (B, N) moments reaches device memory.
+// 8 x 1000 x 500) against ~0.5 MB of inputs and outputs; the least work is
+// the expansion form's 3 FMA and a min a pair, 4 FP32 lane instructions
+// (0.239 ms on an H100 at 1980 MHz). The direct form (p - t)^2 costs 7.
+//
+// Design: the expansion form's instructions with the direct form's
+// accuracy at small distances.
+//  * Centred frame. A shift moves no distance, so the block of candidate c
+//    works relative to the candidate's own translation t: p_i = R m_i and
+//    q_j = target_j - t, each rounded once. |p|^2 and |q|^2 are then of
+//    the order of the object's radius squared, not of the camera depth's
+//    (0.36 m^2 at 0.6 m), and so is the rounding of the scan below.
+//  * Expansion scan with a group minimum. Targets are staged as float4
+//    (-2q, |q|^2); per pair the scan computes s_j = p.(-2q_j) + |q_j|^2
+//    (= |p - q_j|^2 - |p|^2) in 3 FFMA and folds each group of kGroup
+//    targets with fminf. Per point and group, selects keep the least group
+//    value and the first group that reached it (strict <: the group of the
+//    first target at the minimum), so the scan branches on nothing but its
+//    own end; |p|^2 is never needed. Targets are padded to a multiple of
+//    kGroup with members whose s is +inf (-2q = 0, |q|^2 = +inf).
+//  * Direct-form recompute in the winning group. After the scan each point
+//    computes (p - q_j)^2 in direct form over the real targets of its
+//    group (q_j = -0.5 (-2q_j), exact) and keeps the least. Wherever that
+//    group holds the nearest target, the value is the direct form's; a
+//    wrong pick needs two targets in different groups whose d2 differ by
+//    less than the centred scan's rounding (~1e-9 m^2 at 0.1 m from the
+//    candidate), and then costs less than that difference. Lane l visits
+//    the group's members from (u + l) mod kGroup on, so the lanes of a
+//    quarter warp read distinct banks. With no finite s (overflowing
+//    inputs) the winning group stays 0.
+//  * One block of kThreads threads per (candidate, sample): grid (N, B),
+//    8,000 blocks at the evaluation shape, handed to SMs as they free up,
+//    so no candidates run in series and the last wave is short. Thread
+//    tid holds the points i = base + k kThreads + tid (k < kPts) in
+//    registers, and each staged target is one broadcast float4 that feeds
+//    kPts independent chains. dmin stays in shared memory for the mean and
+//    the centred second pass.
+// The compiled scan loop runs 4.44 instructions a pair (56 registers, 9
+// blocks per SM). On an H100, kPts 8 at 64 threads, kGroup 32, and a
+// register cap for 10 or 12 blocks per SM were each as fast or slower.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -26,8 +54,14 @@
 namespace {
 
 constexpr int kThreads = 128;            // 4 warps
+constexpr int kWarps = kThreads / 32;
 constexpr int kPts = 4;                  // model points per thread per pass
-constexpr int kCandidatesPerBlock = 8;
+constexpr int kGroup = 16;               // targets per group minimum
+
+// Targets staged for `m`: padded to a multiple of kGroup.
+__host__ __device__ inline int padded_targets(int m) {
+  return (m + kGroup - 1) / kGroup * kGroup;
+}
 
 // Sum over the block; every thread gets the result. Starts with a barrier,
 // so callers may reuse `scratch` right after a previous call.
@@ -39,7 +73,7 @@ __device__ float block_sum(float v, float* scratch) {
   if (lane == 0) scratch[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    float s = lane < (kThreads / 32) ? scratch[lane] : 0.0f;
+    float s = lane < kWarps ? scratch[lane] : 0.0f;
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
     if (lane == 0) scratch[32] = s;
   }
@@ -56,76 +90,109 @@ sym_moments_kernel(const float* __restrict__ rot,     // (B, N, 3, 3)
                    float* __restrict__ var,           // (B, N)
                    int n, int m) {
   extern __shared__ float4 smem[];
-  float4* tgt = smem;                                   // M
-  float4* mdl = smem + m;                               // M
-  float* dmin = reinterpret_cast<float*>(smem + 2 * m); // M
+  const int m_pad = padded_targets(m);
+  float4* tgt = smem;                                       // m_pad
+  float* dmin = reinterpret_cast<float*>(smem + m_pad);     // M
   __shared__ float scratch[33];
 
   const int b = blockIdx.y;
+  const size_t bc = static_cast<size_t>(b) * n + blockIdx.x;
+  const float tx = pred_t[bc * 3], ty = pred_t[bc * 3 + 1],
+              tz = pred_t[bc * 3 + 2];
+  // the targets in the candidate's frame: (-2q, |q|^2), q = target - t
   const float* tb = target + static_cast<size_t>(b) * m * 3;
-  const float* mb = model + static_cast<size_t>(b) * m * 3;
-  for (int j = threadIdx.x; j < m; j += kThreads) {
-    tgt[j] = make_float4(tb[3 * j], tb[3 * j + 1], tb[3 * j + 2], 0.0f);
-    mdl[j] = make_float4(mb[3 * j], mb[3 * j + 1], mb[3 * j + 2], 0.0f);
+  for (int j = threadIdx.x; j < m_pad; j += kThreads) {
+    if (j >= m) {
+      tgt[j] = make_float4(0.0f, 0.0f, 0.0f, INFINITY);
+      continue;
+    }
+    const float qx = tb[3 * j] - tx, qy = tb[3 * j + 1] - ty,
+                qz = tb[3 * j + 2] - tz;
+    tgt[j] = make_float4(-2.0f * qx, -2.0f * qy, -2.0f * qz,
+                         fmaf(qx, qx, fmaf(qy, qy, qz * qz)));
   }
   __syncthreads();
 
+  const float* r = rot + bc * 9;
+  const float r00 = r[0], r01 = r[1], r02 = r[2];
+  const float r10 = r[3], r11 = r[4], r12 = r[5];
+  const float r20 = r[6], r21 = r[7], r22 = r[8];
+  const float* mb = model + static_cast<size_t>(b) * m * 3;
+  const int lane = threadIdx.x & 31;
   const float inv_m = 1.0f / static_cast<float>(m);
   const float inv_m1 = 1.0f / static_cast<float>(m > 1 ? m - 1 : 1);
-  const int c_begin = static_cast<int>(blockIdx.x) * kCandidatesPerBlock;
-  const int c_end = min(n, c_begin + kCandidatesPerBlock);
-  for (int c = c_begin; c < c_end; ++c) {
-    const size_t bc = static_cast<size_t>(b) * n + c;
-    const float* r = rot + bc * 9;
-    const float r00 = r[0], r01 = r[1], r02 = r[2];
-    const float r10 = r[3], r11 = r[4], r12 = r[5];
-    const float r20 = r[6], r21 = r[7], r22 = r[8];
-    const float tx = pred_t[bc * 3], ty = pred_t[bc * 3 + 1],
-                tz = pred_t[bc * 3 + 2];
 
-    float local = 0.0f;
-    for (int base = 0; base < m; base += kThreads * kPts) {
-      float px[kPts], py[kPts], pz[kPts], best[kPts];
+  float local = 0.0f;
+  for (int base = 0; base < m; base += kThreads * kPts) {
+    float px[kPts], py[kPts], pz[kPts], best[kPts];
+    int first[kPts];
 #pragma unroll
-      for (int k = 0; k < kPts; ++k) {
-        const int i = base + k * kThreads + threadIdx.x;
-        const float4 p = i < m ? mdl[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-        px[k] = fmaf(r00, p.x, fmaf(r01, p.y, fmaf(r02, p.z, tx)));
-        py[k] = fmaf(r10, p.x, fmaf(r11, p.y, fmaf(r12, p.z, ty)));
-        pz[k] = fmaf(r20, p.x, fmaf(r21, p.y, fmaf(r22, p.z, tz)));
-        best[k] = INFINITY;
+    for (int k = 0; k < kPts; ++k) {
+      const int i = base + k * kThreads + threadIdx.x;
+      float mx = 0.0f, my = 0.0f, mz = 0.0f;
+      if (i < m) {
+        mx = mb[3 * i];
+        my = mb[3 * i + 1];
+        mz = mb[3 * i + 2];
       }
-      for (int j = 0; j < m; ++j) {
-        const float4 t = tgt[j];
+      px[k] = fmaf(r00, mx, fmaf(r01, my, r02 * mz));
+      py[k] = fmaf(r10, mx, fmaf(r11, my, r12 * mz));
+      pz[k] = fmaf(r20, mx, fmaf(r21, my, r22 * mz));
+      best[k] = INFINITY;
+      first[k] = 0;
+    }
+    // the scan: no branch on data
+    for (int g = 0; g < m_pad; g += kGroup) {
+      float low[kPts];
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const float4 t = tgt[g + u];
 #pragma unroll
         for (int k = 0; k < kPts; ++k) {
-          const float dx = px[k] - t.x, dy = py[k] - t.y, dz = pz[k] - t.z;
-          best[k] = fminf(best[k], fmaf(dx, dx, fmaf(dy, dy, dz * dz)));
+          const float s = fmaf(px[k], t.x, fmaf(py[k], t.y,
+                                                fmaf(pz[k], t.z, t.w)));
+          low[k] = u == 0 ? s : fminf(low[k], s);
         }
       }
 #pragma unroll
       for (int k = 0; k < kPts; ++k) {
-        const int i = base + k * kThreads + threadIdx.x;
-        if (i < m) {
-          const float d = sqrtf(fmaxf(best[k], 0.0f));
-          dmin[i] = d;
-          local += d;
-        }
+        first[k] = low[k] < best[k] ? g : first[k];
+        best[k] = fminf(best[k], low[k]);
       }
     }
-    // block_sum's leading barrier also publishes dmin to the second pass
-    const float mean = block_sum(local, scratch) * inv_m;
-    float sq = 0.0f;
-    for (int i = threadIdx.x; i < m; i += kThreads) {
-      const float dd = dmin[i] - mean;
-      sq = fmaf(dd, dd, sq);
+    // the direct form over the real targets of each point's group
+#pragma unroll
+    for (int k = 0; k < kPts; ++k) {
+      float d2 = INFINITY;
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const int j = first[k] + ((u + lane) & (kGroup - 1));
+        const float4 t = tgt[j];
+        const float dx = fmaf(0.5f, t.x, px[k]);   // p - q
+        const float dy = fmaf(0.5f, t.y, py[k]);
+        const float dz = fmaf(0.5f, t.z, pz[k]);
+        const float e = fmaf(dx, dx, fmaf(dy, dy, dz * dz));
+        d2 = j < m ? fminf(d2, e) : d2;
+      }
+      const int i = base + k * kThreads + threadIdx.x;
+      if (i < m) {
+        const float d = sqrtf(d2);
+        dmin[i] = d;
+        local += d;
+      }
     }
-    const float total = block_sum(sq, scratch);
-    if (threadIdx.x == 0) {
-      dis[bc] = mean;
-      var[bc] = total * inv_m1;
-    }
-    __syncthreads();  // dmin is rewritten by the next candidate
+  }
+  // block_sum's leading barrier also publishes dmin to the second pass
+  const float mean = block_sum(local, scratch) * inv_m;
+  float sq = 0.0f;
+  for (int i = threadIdx.x; i < m; i += kThreads) {
+    const float dd = dmin[i] - mean;
+    sq = fmaf(dd, dd, sq);
+  }
+  const float total = block_sum(sq, scratch);
+  if (threadIdx.x == 0) {
+    dis[bc] = mean;
+    var[bc] = total * inv_m1;
   }
 }
 
@@ -135,7 +202,22 @@ extern "C" {
 
 // Bytes of dynamic shared memory a launch needs for `m` points.
 size_t sym_moments_smem_bytes(int m) {
-  return static_cast<size_t>(m) * (2 * sizeof(float4) + sizeof(float));
+  return static_cast<size_t>(padded_targets(m)) * sizeof(float4)
+      + static_cast<size_t>(m) * sizeof(float);
+}
+
+// The blocks that one SM holds at once with `m` points, from the registers
+// and shared memory of the compiled kernel, or minus a CUDA error code.
+int sym_moments_blocks_per_sm(int m) {
+  const size_t smem = sym_moments_smem_bytes(m);
+  int per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      sym_moments_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sym_moments_kernel, kThreads, smem);
+  return err == cudaSuccess ? per_sm : -static_cast<int>(err);
 }
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success).
@@ -147,8 +229,7 @@ int sym_moments_fwd(const float* rot, const float* pred_t, const float* model,
       sym_moments_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + kCandidatesPerBlock - 1) / kCandidatesPerBlock, b);
-  sym_moments_kernel<<<grid, kThreads, smem,
+  sym_moments_kernel<<<dim3(n, b), kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       rot, pred_t, model, target, dis, var, n, m);
   return static_cast<int>(cudaGetLastError());

@@ -39,8 +39,8 @@ from . import kernel_build
 KERNEL = "sym_moments"
 TRAIN_KERNEL = "sym_moments_train"
 # Largest M whose staged points fit the 227 KB of shared memory of a block
-# (36 bytes a point in csrc/sym_moments.cu, 48 in csrc/sym_moments_train.cu,
-# whose targets are padded to a multiple of 16: 4800 is one).
+# (20 bytes a point in csrc/sym_moments.cu, 48 in csrc/sym_moments_train.cu;
+# both pad their targets to a multiple of 16, and 6400 and 4800 are ones).
 MAX_POINTS = 6400
 MAX_TRAIN_POINTS = 4800
 # Bound on the plain versions' (chunk, M, M) tile: 2^24 f32 elements.

@@ -6,8 +6,13 @@ NVIDIA GPU and check it. Run from the repository root:
 
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit; build every CUDA kernel of the path,
-  2. kernels: each kernel against its plain PyTorch version on the card at
-     the main path's shapes, timed with CUDA events,
+  2. forward moments kernel: `moments_cuda` against `moments_plain` on f64
+     copies of the inputs (the f64 truth) at the evaluation shape, in the
+     tie and degenerate-sphere cases (there also against the plain version
+     in f32), and in phase 6's camera-depth, mirror-tie and near-coincident
+     cases and the ground-truth pose at 0.6 m; its ptxas report (no
+     spills), scan loop SASS (no branch) and launch geometry; timed with
+     the host in the loop and queued ahead,
   3. serving: `full_prediction` at the headline geometry (5 classes,
      640x480, 1000 points, crop 320, 2 refine iterations, bf16, random
      weights from a seed) at emb_stride 8 and 2, frames/s,
@@ -52,7 +57,9 @@ With `--nn-timing ROOT` it runs only phase 8's timing, of the port in the
 checkout at ROOT, and prints it as one JSON line: run it on two checkouts
 back to back on one card to compare them alike. `--train-timing ROOT` does
 the same for phase 6's training kernel, with a SHA-256 of its output on
-every case in both modes (equal hashes: equal outputs, bit for bit).
+every case in both modes (equal hashes: equal outputs, bit for bit), and
+`--moments-timing ROOT` for phase 2's forward kernel, with its errors
+against the f64 truth on every case.
 Then one JSON line with the kernels' numbers, and last the JSON result line.
 Needs no network; imports nothing of JAX.
 """
@@ -212,29 +219,147 @@ def moment_cases(dev):
     return cases
 
 
+PLAIN_GATED = ("eval_shape", "ties", "degenerate")   # moment_cases' names
+
+
+def forward_cases(dev):
+    """Phase 2's cases: `moment_cases`, then phase 6's camera-depth,
+    mirror-tie and near-coincident cases and the ground-truth pose."""
+    return moment_cases(dev) + [camera_case(dev), mirror_case(dev),
+                                coincident_case(dev), ground_truth_case(dev)]
+
+
+def f64_truth(rot, pred_t, model, target):
+    """(dis, var) of `moments_plain` on f64 copies of the inputs."""
+    from autoposeestimation_tpu_torch.ops import addloss
+
+    return addloss.moments_plain(*(a.double() for a in (rot, pred_t, model,
+                                                        target)))
+
+
+def moment_errors(got, want) -> tuple:
+    """(max |dis error|, max |std error|) of two (dis, var) pairs."""
+    (dis_a, var_a), (dis_b, var_b) = got, want
+    return ((dis_a.double() - dis_b.double()).abs().max().item(),
+            (var_a.double().clamp(min=0).sqrt()
+             - var_b.double().clamp(min=0).sqrt()).abs().max().item())
+
+
+MOMENTS_TIMED = ("eval_shape", "camera_depth")   # both at B=8, N=1000, M=500
+
+
+def clock_under_load(fn, calls: int) -> str:
+    """nvidia-smi's SM clock and power draw, read while `calls` queued calls
+    of `fn` keep the card busy (the queue fills, so the read falls in the
+    last few hundred calls)."""
+    for _ in range(calls):
+        fn()
+    reading = nvidia_smi("clocks.sm,power.draw")
+    torch.cuda.synchronize()
+    return reading
+
+
+def moments_timing(dev, clock_mhz: float, moments_cuda) -> dict:
+    """`moments_cuda`'s largest errors against the f64 truth on each case of
+    `forward_cases`, and its time on the cases in MOMENTS_TIMED with the
+    host in the loop (`cuda_ms`) and with the host queued ahead
+    (`queued_ms`: `device_ms`, `host_ms`). Uses only `moments_cuda`, so it
+    times earlier versions of the port too (`--moments-timing`)."""
+    errors, times = {}, {}
+    for name, rot, pred_t, model, target in forward_cases(dev):
+        def call():
+            return moments_cuda(rot, pred_t, model, target)
+
+        err = moment_errors(call(), f64_truth(rot, pred_t, model, target))
+        errors[name] = {"dis": err[0], "std": err[1]}
+        if name in MOMENTS_TIMED:
+            device_ms, host_ms = queued_ms(call, 20, clock_mhz)
+            times[name] = {"cuda_ms": cuda_ms(call, 20),
+                           "device_ms": device_ms, "host_ms": host_ms,
+                           "clock_under_load": clock_under_load(call, 4000)}
+    return {"errors": errors, "timing": times}
+
+
+def moments_kernel_report(b: int, n: int, m: int) -> dict:
+    """ptxas's report of the forward kernel (no spills), its scan loop's
+    SASS (no branch), and the launch's geometry at (b, n, m)."""
+    import ctypes
+    import re
+
+    from autoposeestimation_tpu_torch.ops import addloss, kernel_build
+
+    path = kernel_build.build(addloss.KERNEL)
+    report = re.findall(
+        r"Compiling entry function '\w*sym_moments_kernel\w*'"
+        r".*?(\d+) bytes spill stores, (\d+) bytes spill loads"
+        r".*?Used (\d+) registers",
+        path.with_name(path.name + ".log").read_text(), re.S)
+    check(len(report) == 1, f"ptxas report {report}")
+    stores, loads, regs = report[0]
+    check(stores == loads == "0", f"sym_moments: spills {stores}, {loads}")
+    loop = scan_loop_sass(path).get("forward")
+    if loop:
+        print(f"sass sym_moments: scan loop of {loop['instructions']} "
+              f"instructions for {loop['pairs']} pairs ({loop['per_pair']:.2f}"
+              f" a pair), {loop['branches']} conditional branches besides "
+              f"its back edge; {loop['ops']}")
+        check(loop["branches"] == 0, "sym_moments: a branch in the scan loop")
+    lib = ctypes.CDLL(str(path))
+    per_sm = lib.sym_moments_blocks_per_sm(m)
+    check(per_sm > 0, f"sym_moments_blocks_per_sm: {per_sm}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib.sym_moments_smem_bytes.restype = ctypes.c_size_t
+    smem_bytes = lib.sym_moments_smem_bytes(m)
+    print(f"ptxas sym_moments: {regs} registers, 0 bytes spilled; at B={b} "
+          f"N={n} M={m}: {smem_bytes} bytes of dynamic shared memory, "
+          f"{per_sm} blocks per SM, grid ({n}, {b}) x 128 threads, "
+          f"{b * n / (per_sm * sms):.2f} waves")
+    return {"registers": int(regs), "smem_bytes": smem_bytes,
+            "blocks_per_sm": per_sm, "grid": [n, b],
+            "waves": b * n / (per_sm * sms),
+            "sass_per_pair": loop["per_pair"] if loop else None}
+
+
 def kernel_phase(dev, clock_mhz: float):
     from autoposeestimation_tpu_torch.ops import addloss
 
     worst = 0.0
-    for name, rot, pred_t, model, target in moment_cases(dev):
-        dis_k, var_k = addloss.moments_cuda(rot, pred_t, model, target)
-        dis_p, var_p = addloss.moments_plain(rot, pred_t, model, target)
+    for name, rot, pred_t, model, target in forward_cases(dev):
+        got = addloss.moments_cuda(rot, pred_t, model, target)
+        plain = addloss.moments_plain(rot, pred_t, model, target)
+        exact = f64_truth(rot, pred_t, model, target)
         torch.cuda.synchronize()
-        err_dis = (dis_k - dis_p).abs().max().item()
-        err_std = (var_k.clamp(min=0).sqrt()
-                   - var_p.clamp(min=0).sqrt()).abs().max().item()
-        check(torch.isfinite(dis_k).all().item(), f"{name}: non-finite dis")
-        check(err_dis <= DIS_ATOL, f"{name}: dis error {err_dis}")
-        check(err_std <= STD_ATOL, f"{name}: std error {err_std}")
-        print(f"kernel sym_moments {name} {tuple(rot.shape[:2])} "
-              f"M={model.shape[1]}: max|dis err| {err_dis:.3e} "
-              f"max|std err| {err_std:.3e}")
+        check(torch.isfinite(got[0]).all().item(), f"{name}: non-finite dis")
+        err_dis, err_std = moment_errors(got, exact)
+        plain_dis, plain_std = moment_errors(plain, exact)
+        check(err_dis <= DIS_ATOL, f"{name}: dis error {err_dis} (f64)")
+        check(err_std <= STD_ATOL, f"{name}: std error {err_std} (f64)")
+        line = (f"kernel sym_moments {name} {tuple(rot.shape[:2])} "
+                f"M={model.shape[1]}: against the f64 truth max|dis err| "
+                f"{err_dis:.3e} max|std err| {err_std:.3e} (plain f32: "
+                f"{plain_dis:.3e}, {plain_std:.3e})")
         worst = max(worst, err_dis, err_std)
+        if name in PLAIN_GATED:
+            vs_dis, vs_std = moment_errors(got, plain)
+            check(vs_dis <= DIS_ATOL, f"{name}: dis error {vs_dis}")
+            check(vs_std <= STD_ATOL, f"{name}: std error {vs_std}")
+            line += (f"; against the plain version max|dis err| "
+                     f"{vs_dis:.3e} max|std err| {vs_std:.3e}")
+            worst = max(worst, vs_dis, vs_std)
+        print(line)
 
     _, rot, pred_t, model, target = moment_cases(dev)[0]
     b, n = rot.shape[:2]
     m = model.shape[1]
-    ms = cuda_ms(lambda: addloss.moments_cuda(rot, pred_t, model, target), 20)
+    geometry = moments_kernel_report(b, n, m)
+    timing = moments_timing(dev, clock_mhz, addloss.moments_cuda)["timing"]
+    for name, t in timing.items():
+        print(f"kernel sym_moments {name} timing: {t['cuda_ms']:.4f} ms with "
+              f"the host in the loop, {t['device_ms']:.4f} ms device and "
+              f"{t['host_ms']:.4f} ms host time queued ahead; SM clock and "
+              f"power under load {t['clock_under_load']}")
+    ms = timing["eval_shape"]["cuda_ms"]
+    device_ms = timing["eval_shape"]["device_ms"]
     plain_ms = cuda_ms(
         lambda: addloss.moments_plain(rot, pred_t, model, target), 3, 1)
     # least work: 4 FP32 instructions per point pair (the expansion form's
@@ -245,17 +370,20 @@ def kernel_phase(dev, clock_mhz: float):
     ops_ms = ops / (sms * 128 * clock_mhz * 1e6) * 1e3
     nbytes = 4 * (b * n * 12 + 2 * b * m * 3 + 2 * b * n)
     bytes_ms = nbytes / 3.35e12 * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
     print(f"kernel sym_moments timing at B={b} N={n} M={m}: {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms "
+          f"device {device_ms:.4f} ms ({100 * bound_ms / device_ms:.1f}% of "
+          f"the bound), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({ops:.3e} ops at {sms} SMs x 128 lanes x {clock_mhz} MHz)")
     return {
         "name": "sym_moments", "route": "cuda",
         "source": "autoposeestimation_tpu_torch/csrc/sym_moments.cu",
         "replaces": "autoposeestimation_tpu/ops/pallas_addloss.py:71",
         "launches": None, "max_abs_err": worst, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+        "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,
+        "library_ms": None, "device_ms": device_ms,
+        "sass_per_pair": geometry["sass_per_pair"], "geometry": geometry,
     }
 
 
@@ -523,21 +651,41 @@ def mirror_case(dev, b=8, n=1000, m=500):
         for a in (rot, pred_t, model, target))
 
 
-def train_cases(dev):
-    """(name, rot, pred_t, model, target): phase 6's cases, the training
-    shape (B=8, N=1000, M=500) first."""
+def coincident_case(dev):
+    """Each predicted point ~2e-4 m from its target, under the expansion
+    form's rounding floor."""
     rng = np.random.default_rng(9)
-    cases = moment_cases(dev) + [camera_case(dev), mirror_case(dev)]
-    # each predicted point ~2e-4 m from its target, under the expansion
-    # form's rounding floor
     model = rng.normal(size=(1, 500, 3)) * 0.05
     pred_t = np.asarray([0.1, 0.0, 0.0]) + rng.normal(size=(1, 1000, 3)) \
         * 1e-4
-    cases.append(("coincident",
-                  torch.eye(3, device=dev).expand(1, 1000, 3, 3).contiguous(),
-                  *(torch.as_tensor(a.astype(np.float32), device=dev)
-                    for a in (pred_t, model, model + [0.1, 0.0, 0.0]))))
-    return cases
+    return ("coincident",
+            torch.eye(3, device=dev).expand(1, 1000, 3, 3).contiguous(),
+            *(torch.as_tensor(a.astype(np.float32), device=dev)
+              for a in (pred_t, model, model + [0.1, 0.0, 0.0])))
+
+
+def ground_truth_case(dev, b=8, n=1000, m=500):
+    """Every candidate at its sample's true pose at the 0.6 m camera depth:
+    each matched distance is the f32 rounding of the inputs (~1e-8 m),
+    where the expansion form in the camera frame floors near 1e-4 m."""
+    from autoposeestimation_tpu_torch.utils import transforms as T
+
+    rng = np.random.default_rng(13)
+    rot = T.quat_to_mat(torch.as_tensor(rng.normal(size=(b, 4)))).numpy()
+    model = rng.normal(size=(b, m, 3)) * 0.05
+    trans = rng.normal(size=(b, 3)) * 0.05 + [0.0, 0.0, 0.6]
+    target = np.einsum("bmj,bij->bmi", model, rot) + trans[:, None]
+    return ("ground_truth",) + tuple(
+        torch.as_tensor(np.asarray(a, np.float32), device=dev).contiguous()
+        for a in (np.broadcast_to(rot[:, None], (b, n, 3, 3)),
+                  np.broadcast_to(trans[:, None], (b, n, 3)), model, target))
+
+
+def train_cases(dev):
+    """(name, rot, pred_t, model, target): phase 6's cases, the training
+    shape (B=8, N=1000, M=500) first."""
+    return moment_cases(dev) + [camera_case(dev), mirror_case(dev),
+                                coincident_case(dev)]
 
 
 TRAIN_TIMED = ("eval_shape", "camera_depth")   # both at B=8, N=1000, M=500
@@ -570,10 +718,13 @@ def train_timing(dev, clock_mhz: float, moments_train_cuda) -> dict:
 
 
 def scan_loop_sass(path) -> dict:
-    """The scan loop of a built training kernel (`cuobjdump -sass`), per
-    mode, with its static instructions (every path of its body), point
-    pairs (one FMUL a pair in either mode), instructions a pair,
-    conditional branches other than its back edge, and its opcodes. Empty
+    """The scan loop of a built moments kernel (`cuobjdump -sass`): per mode
+    of the training kernel ("bf16", "f32") or of the forward kernel
+    ("forward"), its static instructions (every path of its body), point
+    pairs, instructions a pair, conditional branches other than its back
+    edge, and its opcodes. A pair costs one FMUL in the training kernel's
+    modes and in the direct form, and three FFMA in the expansion form
+    without an FMUL; pairs = max(FMUL, FFMA / 3) counts either. Empty
     without cuobjdump."""
     import collections
     import re
@@ -585,9 +736,18 @@ def scan_loop_sass(path) -> dict:
     text = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, check=True).stdout
     found = {}
+
+    def pairs_of(names):
+        return max(names.count("FMUL"), names.count("FFMA") // 3)
+
     for body in re.split(r"\n\s*Function : ", text)[1:]:
-        mode = re.search(r"sym_moments_train_kernelILb(\d)", body.split()[0])
-        if not mode:
+        head = body.split()[0]
+        mode = re.search(r"sym_moments_train_kernelILb(\d)", head)
+        if mode:
+            key = "bf16" if mode.group(1) == "1" else "f32"
+        elif "sym_moments_kernel" in head:
+            key = "forward"
+        else:
             continue
         code, at = [], {}
         for line in body.splitlines():
@@ -614,10 +774,10 @@ def scan_loop_sass(path) -> dict:
                  and "LDS" in ops(lp)
                  and not {"LDG", "STS", "MUFU", "SHFL"} & set(ops(lp))]
         check(bool(scans), f"no scan loop in the SASS of {path}")
-        loop = max(scans, key=lambda lp: ops(lp).count("FMUL"))
+        loop = max(scans, key=lambda lp: pairs_of(ops(lp)))
         names = ops(loop)
-        pairs = names.count("FMUL")
-        found["bf16" if mode.group(1) == "1" else "f32"] = {
+        pairs = pairs_of(names)
+        found[key] = {
             "instructions": len(names), "pairs": pairs,
             "per_pair": len(names) / max(pairs, 1),
             "branches": sum(code[k].startswith("@") and " BRA " in code[k]
@@ -1144,6 +1304,26 @@ def train_timing_main(root: str) -> int:
     return 0
 
 
+def moments_timing_main(root: str) -> int:
+    """`--moments-timing ROOT`: the forward kernel of the port in the
+    checkout at ROOT (an earlier commit, say) on phase 2's cases, built by
+    this script: its largest errors against the f64 truth and its times,
+    printed as one JSON line, so that two versions are compared alike, back
+    to back on one card."""
+    sys.path.insert(0, os.path.abspath(root))
+    from autoposeestimation_tpu_torch.ops import addloss, kernel_build
+
+    check(addloss.__file__.startswith(os.path.abspath(root)),
+          f"imported {addloss.__file__}, not the port under {root}")
+    path = kernel_build.build(addloss.KERNEL)
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    result = moments_timing(torch.device("cuda"), clock_mhz,
+                            addloss.moments_cuda)
+    print(json.dumps({"root": root, "card": nvidia_smi("name,power.limit"),
+                      **result, "sass": scan_loop_sass(path)}))
+    return 0
+
+
 # --- phase 9: reconstruction ------------------------------------------------------
 
 BALL_CENTERS = np.asarray([[30.0, 10.0, 40.0], [55.0, 35.0, 65.0]])
@@ -1412,8 +1592,10 @@ def main() -> int:
         return nn_timing_main(sys.argv[2])
     if sys.argv[1:2] == ["--train-timing"] and len(sys.argv) == 3:
         return train_timing_main(sys.argv[2])
-    check(len(sys.argv) == 1,
-          f"usage: {sys.argv[0]} [--nn-timing ROOT | --train-timing ROOT]")
+    if sys.argv[1:2] == ["--moments-timing"] and len(sys.argv) == 3:
+        return moments_timing_main(sys.argv[2])
+    check(len(sys.argv) == 1, f"usage: {sys.argv[0]} [--nn-timing ROOT | "
+          f"--train-timing ROOT | --moments-timing ROOT]")
     from autoposeestimation_tpu_torch.ops import kernel_build
 
     dev = torch.device("cuda")

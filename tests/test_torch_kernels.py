@@ -47,6 +47,25 @@ def degenerate_inputs(n=64, m=100, seed=0):
               for a in (pred_t, sphere[None], target[None])))
 
 
+def camera_depth_inputs(seed=10, n=1000, m=500):
+    """One sample at the evaluation batches' 0.6 m camera depth:
+    candidates scattered around the true pose, each translation a cloud
+    point plus an offset, as in `pose_loss`."""
+    rng = np.random.default_rng(seed)
+    q_true = rng.normal(size=4)
+    q_true /= np.linalg.norm(q_true)
+    rot_true = T.quat_to_mat(torch.from_numpy(q_true)).numpy()
+    model = rng.normal(size=(m, 3)) * 0.05
+    target = model @ rot_true.T + [0.0, 0.0, 0.6]
+    cloud = target[rng.integers(0, m, n)] + rng.normal(size=(n, 3)) * 2e-3
+    quat = q_true + rng.normal(size=(n, 4)) * 0.1
+    pred_t = cloud + rng.normal(size=(n, 3)) * 0.01
+    return (T.quat_to_mat(torch.from_numpy(quat[None].astype(np.float32)))
+            .contiguous(),
+            *(torch.from_numpy(a[None].astype(np.float32))
+              for a in (pred_t, model, target)))
+
+
 def test_kernel_wrapper_rejects_cpu_tensors():
     """The wrapper launches for CUDA tensors or raises; it never falls back
     to the plain version."""
@@ -72,6 +91,15 @@ def test_kernel_matches_plain_on_card():
         np.testing.assert_allclose(dis_k.cpu(), dis_p.cpu(), atol=1e-5)
         np.testing.assert_allclose(var_k.clamp(min=0).sqrt().cpu(),
                                    var_p.clamp(min=0).sqrt().cpu(), atol=1e-4)
+    # at the camera depth, against the plain version on f64 copies
+    rot, pred_t, model, target = [a.to(dev) for a in camera_depth_inputs()]
+    dis_k, var_k = addloss.moments(rot, pred_t, model, target)
+    dis_p, var_p = addloss.moments_plain(
+        *(a.double() for a in (rot, pred_t, model, target)))
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(dis_k.cpu(), dis_p.cpu(), atol=1e-5)
+    np.testing.assert_allclose(var_k.clamp(min=0).sqrt().cpu(),
+                               var_p.clamp(min=0).sqrt().cpu(), atol=1e-4)
 
 
 def test_train_kernel_wrapper_rejects_cpu_tensors():
