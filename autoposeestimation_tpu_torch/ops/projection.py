@@ -1,11 +1,13 @@
-"""Camera projection and masked point selection (port of the serving part of
-`autoposeestimation_tpu/ops/projection.py`). Masks and windows carry any
-leading batch dimensions S (one window per class in the serving path);
-intrinsics are a (4,) tensor (fx, fy, ppx, ppy)."""
+"""Camera projection and masked point selection (port of the serving and
+dataset parts of `autoposeestimation_tpu/ops/projection.py`). Masks and
+windows carry any leading batch dimensions S (one window per class in the
+serving path); intrinsics are a (4,) tensor (fx, fy, ppx, ppy).
+`zoom_window_bbox_np` is the dataset's numpy twin of `zoom_window_bbox`."""
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 BORDER_STEP = 40
@@ -19,6 +21,19 @@ def pixels_to_points(rows, cols, depth_vals, intr) -> torch.Tensor:
     x = (cols.to(z.dtype) - ppx) * z / fx
     y = (rows.to(z.dtype) - ppy) * z / fy
     return torch.stack([x, y, z], dim=-1)
+
+
+def points_to_pixels(points: torch.Tensor, intr) -> torch.Tensor:
+    """Camera-frame points (..., 3) -> integer (row, col) pixels (..., 2),
+    int32: floor(x / (z / fx) + ppx + 1e-3) in f32, the reference's int()
+    truncation made robust to f32 rounding just below a pixel centre."""
+    points = torch.as_tensor(points, dtype=torch.float32)
+    intr = torch.as_tensor(intr, dtype=torch.float32, device=points.device)
+    fx, fy, ppx, ppy = intr[0], intr[1], intr[2], intr[3]
+    x, y, z = points[..., 0], points[..., 1], points[..., 2]
+    col = torch.floor(x / (z / fx) + ppx + 1e-3).to(torch.int32)
+    row = torch.floor(y / (z / fy) + ppy + 1e-3).to(torch.int32)
+    return torch.stack([row, col], dim=-1)
 
 
 def quantize_extent(extent: torch.Tensor) -> torch.Tensor:
@@ -69,6 +84,41 @@ def zoom_window_bbox(mask: torch.Tensor, crop: int, img_h: int, img_w: int):
     cc = torch.div(cmin + cmax, 2, rounding_mode="floor")
     r0 = torch.minimum(torch.clamp(rc - win // 2, min=0), img_h - win)
     c0 = torch.minimum(torch.clamp(cc - win // 2, min=0), img_w - win)
+    return r0, c0, win
+
+
+def zoom_window_bbox_np(mask: np.ndarray, crop: int, img_h: int,
+                        img_w: int) -> Tuple[int, int, int]:
+    """`zoom_window_bbox` of one (H, W) mask in numpy with the same integer
+    math, for the dataset: training and serving crops are the same
+    function of the mask."""
+    rows = np.any(mask, axis=1)
+    cols = np.any(mask, axis=0)
+    if not rows.any():
+        rmin, rmax, cmin, cmax = 0, 1, 0, 1
+    else:
+        rw = np.where(rows)[0]
+        cw = np.where(cols)[0]
+        rmin, rmax = int(rw[0]), int(rw[-1]) + 1
+        cmin, cmax = int(cw[0]), int(cw[-1]) + 1
+
+    def quant(e):
+        return min(-(-e // BORDER_STEP) * BORDER_STEP, BORDER_MAX)
+
+    r_b, c_b = quant(rmax - rmin), quant(cmax - cmin)
+    rc, cc = (rmin + rmax) // 2, (cmin + cmax) // 2
+    rmin, rmax = rc - r_b // 2, rc + r_b // 2
+    cmin, cmax = cc - c_b // 2, cc + c_b // 2
+    rshift = max(-rmin, 0) - max(rmax - img_h, 0)
+    cshift = max(-cmin, 0) - max(cmax - img_w, 0)
+    rmin, rmax = rmin + rshift, rmax + rshift
+    cmin, cmax = cmin + cshift, cmax + cshift
+
+    ext = max(rmax - rmin, cmax - cmin)
+    win = int(np.clip(ext, crop, min(img_h, img_w)))
+    rc2, cc2 = (rmin + rmax) // 2, (cmin + cmax) // 2
+    r0 = int(np.clip(rc2 - win // 2, 0, img_h - win))
+    c0 = int(np.clip(cc2 - win // 2, 0, img_w - win))
     return r0, c0, win
 
 

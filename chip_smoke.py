@@ -73,7 +73,11 @@ import time
 from unittest import mock
 
 import numpy as np
-import torch
+
+# cuBLAS is deterministic under torch.use_deterministic_algorithms only with
+# a fixed workspace, set before its first use (phase 10's resume check)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+import torch  # noqa: E402
 
 # f32 comparisons need full-precision matmuls and convolutions
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -152,10 +156,14 @@ def profile(fn, label: str, per: int, wall_ms: float,
                                    ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    # kernels only: the CPU-side aten ops carry their kernels' time too
+    # kernels only: the CPU-side aten ops carry their kernels' time too,
+    # and a user annotation's span on the device (`Optimizer.step#...`)
+    # covers its kernels and the gaps between them
     events = [e for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA")
-              and e.self_device_time_total > 0]
+              and e.self_device_time_total > 0
+              and not getattr(e, "is_user_annotation", False)
+              and not e.key.startswith("Optimizer.")]
     if not events:
         print(f"profile {label}: the profiler saw no device time")
         return
@@ -1584,6 +1592,313 @@ def reconstruction_phase(dev):
     return launches
 
 
+# --- phase 10: training from a dataset ---------------------------------------------
+
+POSE_DS = "pose5"
+POSE_VIEWS = 20          # 16 training views an object: 80 samples, 10 batches
+POSE_WRITE_BUDGET_S = 60.0
+POSE_COLORS = ((200, 40, 40), (40, 160, 60), (40, 60, 200), (200, 170, 30),
+               (150, 50, 170))
+# the card-vs-CPU dataset check runs this in a process without a card
+CPU_ITEMS = """
+import sys
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+from autoposeestimation_tpu_torch.data import pose_dataset
+items = {}
+for mode in ("test", "train"):
+    ds = pose_dataset.PoseDataset(sys.argv[2], sys.argv[3], mode=mode,
+                                  num_pt=int(sys.argv[5]),
+                                  num_pt_mesh=int(sys.argv[6]),
+                                  return_raw=mode == "test")
+    for i in range(8):
+        for key, val in ds[i].items():
+            items[f"{mode}/{i}/{key}"] = val
+np.savez(sys.argv[4], **items)
+"""
+
+
+def pose_objects():
+    """Five objects on the table: spheres of 30-42 mm, the odd ones with a
+    coloured part (asymmetric), the even ones marked symmetric."""
+    from autoposeestimation_tpu_torch.utils import synthetic
+
+    out = []
+    for i, color in enumerate(POSE_COLORS):
+        r = 30.0 + 3.0 * i
+        parts = () if i % 2 == 0 else (
+            (np.asarray([0.0, r, 10.0]), 0.45 * r, (230, 200, 30)),)
+        out.append(synthetic.SphereObject(
+            f"obj{i}", np.asarray([0.0, 0.0, r]), r, color,
+            symmetric=int(i % 2 == 0), parts=parts))
+    return out
+
+
+def write_pose_dataset(root: str) -> int:
+    """The 5-object dataset at 640x480, fx = fy = 600, from the port's
+    `make_dataset`: POSE_VIEWS views an object unless one view's render
+    (background and foreground) says that would take over
+    POSE_WRITE_BUDGET_S. Returns the views written."""
+    from autoposeestimation_tpu_torch.utils import synthetic
+
+    objects = pose_objects()
+    cfg = synthetic.SynthConfig(img_h=480, img_w=640, fx=600.0, fy=600.0,
+                                n_viewpoints=POSE_VIEWS, noise=1.0)
+    cam = synthetic.ring_cameras(cfg, np.zeros(3))[0]
+    t0 = time.perf_counter()
+    for spheres in ([], objects[:1]):
+        synthetic.render(cfg, cam, spheres)
+    # ~1.3x for the PNGs and metas beside the renders
+    per_view = 1.3 * (time.perf_counter() - t0) * len(objects)
+    views = POSE_VIEWS
+    if per_view * views > POSE_WRITE_BUDGET_S:
+        views = max(int(POSE_WRITE_BUDGET_S / per_view), 2)
+        print(f"pose dataset: cut from {POSE_VIEWS} to {views} views an "
+              f"object ({per_view:.2f} s a view)")
+    cfg.n_viewpoints = views
+    t0 = time.perf_counter()
+    synthetic.make_dataset(root, objects=objects, cfg=cfg,
+                           dataset_name=POSE_DS)
+    print(f"pose dataset: 5 objects x {views} views at 640x480 written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return views
+
+
+def sample_split_ms(ds, count: int) -> dict:
+    """ms per sample of the dataset's three steps, one thread."""
+    spent = {"decode": 0.0, "augment": 0.0, "choose_backproject": 0.0}
+    for i in range(count):
+        t0 = time.perf_counter()
+        img, depth, label, image_meta, meta = ds.load(i)
+        t1 = time.perf_counter()
+        img, label, depth, rot = ds.augment(img, label, depth)
+        t2 = time.perf_counter()
+        ds.sample(i, img, depth, label, image_meta, meta, rot)
+        t3 = time.perf_counter()
+        spent["decode"] += t1 - t0
+        spent["augment"] += t2 - t1
+        spent["choose_backproject"] += t3 - t2
+    return {k: round(1e3 * v / count, 4) for k, v in spent.items()}
+
+
+def loader_rate(ds, workers: int, samples: int) -> float:
+    """Samples a second the Loader assembles (train mode, batch 8)."""
+    from autoposeestimation_tpu_torch.data import loader
+
+    t0 = time.perf_counter()
+    n = 0
+    for batch in loader.Loader(ds, 8, num_workers=workers):
+        n += len(batch["img"])
+        if n >= samples:
+            break
+    return n / (time.perf_counter() - t0)
+
+
+def fed_ms(step, batches_fn, dev, prefetch: bool = False):
+    """(ms per step fed by the Loader: assembly and copy in the loop, or
+    with `prefetch` through `device_prefetch`; the batches, on the card)."""
+    from autoposeestimation_tpu_torch.data import loader
+    from autoposeestimation_tpu_torch.train import densefusion as dft
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    source = batches_fn()
+    if prefetch:
+        source = loader.device_prefetch(source, dev)
+    staged = []
+    for batch in source:
+        staged.append(dft.to_device(batch, dev))
+        step(staged[-1])
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / len(staged), staged
+
+
+def fed_and_staged_ms(step, batches_fn, dev):
+    """ms per step fed by the Loader, and over the same batches staged on
+    the card first; the number of steps."""
+    fed, staged = fed_ms(step, batches_fn, dev)
+    again = iter(staged)
+    return fed, timed_steps(lambda: step(next(again)), len(staged)), \
+        len(staged)
+
+
+def dataset_training_phase(dev):
+    """Phase 10: `App.train_pose_estimation` at full width through both
+    phases from a written dataset; returns the launches of
+    (sym_moments_train, sym_moments) in that run."""
+    import copy
+    import shutil
+    import tempfile
+
+    from autoposeestimation_tpu_torch import weights
+    from autoposeestimation_tpu_torch.data import loader, pose_dataset
+    from autoposeestimation_tpu_torch.main import App
+    from autoposeestimation_tpu_torch.models.densefusion import (
+        PoseNet, PoseRefineNet)
+    from autoposeestimation_tpu_torch.ops import addloss
+    from autoposeestimation_tpu_torch.train import checkpoints
+    from autoposeestimation_tpu_torch.train import densefusion as dft
+
+    with tempfile.TemporaryDirectory() as root:
+        views = write_pose_dataset(root)
+        out_dir = os.path.join(root, "DenseFusion", "trained_models", POSE_DS)
+        after_1 = os.path.join(root, "after_epoch_1")
+        kept = {}
+        save_snapshot = dft.save_trainer_snapshot
+
+        def snapshot(state, out, next_epoch):
+            save_snapshot(state, out, next_epoch)
+            if next_epoch == 2:     # the run as it stood after epoch 1
+                os.makedirs(after_1)
+                for name in ("trainer_resume.npz",
+                             "trainer_resume.npz.meta.json"):
+                    shutil.copy(os.path.join(out, name), after_1)
+                kept["state"] = copy.deepcopy(state)
+
+        # the main path: counts from 0 just before, read just after
+        addloss.moments_train_cuda.launches = 0
+        addloss.moments_cuda.launches = 0
+        t0 = time.perf_counter()
+        with mock.patch.object(dft, "save_trainer_snapshot", snapshot):
+            state = App(root).train_pose_estimation(
+                POSE_DS, epochs=3, refine_epoch_margin=1, device=dev)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        train_launches = addloss.moments_train_cuda.launches
+        fwd_launches = addloss.moments_cuda.launches
+        check(state.refine_start, "dataset training: refiner phase not "
+              "reached")
+        check(train_launches >= 8, f"sym_moments_train launches "
+              f"{train_launches} (>= 8 estimator steps expected)")
+        check(fwd_launches >= 8, f"sym_moments launches {fwd_launches}")
+
+        # the artifacts, each read back into the networks
+        with open(os.path.join(out_dir, "losses.json")) as f:
+            curves = json.load(f)["curves"]
+        for key in ("losses", "train_dists", "test_dists"):
+            check(len(curves[key]) == 2 and all(np.isfinite(curves[key])),
+                  f"losses.json {key}: {curves[key]}")
+        images = os.path.join(out_dir, "logs", "images")
+        for name in ("test_images_epoch_1.png", "test_images_epoch_2.png",
+                     "losses.png"):
+            check(os.path.getsize(os.path.join(images, name)) > 0, name)
+        resume = checkpoints.load_checkpoint(
+            os.path.join(out_dir, "trainer_resume"))
+        check(resume["meta"]["refine_start"] is True
+              and resume["meta"]["epoch"] == 3,
+              f"trainer_resume meta {resume['meta']}")
+        net, ref = PoseNet(5), PoseRefineNet(5)
+        for path, model, to_sd in (
+                ("pose_model", net, weights.posenet_state_dict),
+                ("pose_refine_model", ref, weights.refiner_state_dict)):
+            model.load_state_dict(to_sd(checkpoints.load_checkpoint(
+                os.path.join(out_dir, path))["variables"]))
+        net.load_state_dict(weights.posenet_state_dict(
+            resume["variables"]["pose_vars"]))
+        ref.load_state_dict(weights.refiner_state_dict(
+            resume["variables"]["refine_vars"]))
+
+        # resume the epoch-1 snapshot (refiner phase) into a fresh trainer:
+        # its next refiner step is the uninterrupted run's, bit for bit
+        cfg = dft.DFConfig(refine_epoch_margin=1)
+        fresh = dft.create_trainer(5, cfg, device=dev)
+        dft.resume_trainer(fresh, after_1)
+        check(fresh.refine_start and fresh.cfg.start_epoch == 2,
+              "resumed trainer: phase or epoch")
+        sizes = dict(num_pt=cfg.num_points, num_pt_mesh=cfg.num_points_mesh)
+        test_ds = pose_dataset.PoseDataset(root, POSE_DS, mode="test",
+                                           **sizes)
+        batch = dft.to_device(next(iter(loader.Loader(
+            test_ds, 8, shuffle=False, num_workers=0))), dev)
+        torch.use_deterministic_algorithms(True)
+        try:
+            steps = [dft.refiner_step(s.posenet, s.refiner,
+                                      s.refine_optimizer, batch, s.w,
+                                      s.cfg.iteration, s.cfg.with_sym)
+                     for s in (kept["state"], fresh)]
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        check(torch.equal(steps[0]["dis"], steps[1]["dis"]),
+              f"resumed refiner step: dis {steps[0]['dis'].item()} vs "
+              f"{steps[1]['dis'].item()}")
+        for a, b in itertools.chain(
+                zip(kept["state"].refiner.parameters(),
+                    fresh.refiner.parameters()),
+                zip(kept["state"].posenet.parameters(),
+                    fresh.posenet.parameters())):
+            check(torch.equal(a, b), "resumed refiner step: parameters")
+        print(f"dataset training resume: the epoch-1 snapshot (refiner "
+              f"phase) in a fresh trainer repeats the next refiner step "
+              f"bit for bit (deterministic algorithms): dis "
+              f"{steps[0]['dis'].item():.9f}, every parameter equal")
+
+        # the dataset on the card's process against a process without one
+        with tempfile.TemporaryDirectory() as tmp:
+            npz = os.path.join(tmp, "items.npz")
+            env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+            subprocess.run([sys.executable, "-c", CPU_ITEMS,
+                            os.path.dirname(os.path.abspath(__file__)),
+                            root, POSE_DS, npz, str(cfg.num_points),
+                            str(cfg.num_points_mesh)], env=env, check=True,
+                           timeout=300)
+            with np.load(npz) as cpu_items:
+                n_keys = 0
+                for mode in ("test", "train"):
+                    ds = pose_dataset.PoseDataset(root, POSE_DS, mode=mode,
+                                                  return_raw=mode == "test",
+                                                  **sizes)
+                    for i in range(8):
+                        for key, val in ds[i].items():
+                            check(np.array_equal(
+                                val, cpu_items[f"{mode}/{i}/{key}"]),
+                                f"dataset card vs CPU: {mode} {i} {key}")
+                            n_keys += 1
+        print(f"dataset card vs CPU: 8 test and 8 train items, {n_keys} "
+              f"arrays equal")
+
+        # where the time goes
+        train_ds = pose_dataset.PoseDataset(root, POSE_DS, mode="train",
+                                            **sizes)
+        split = sample_split_ms(train_ds, 16)
+        rates = {w: loader_rate(train_ds, w, 32) for w in (0, 4)}
+
+        def est(batch):
+            dft.estimator_step(state.posenet, state.optimizer, batch,
+                               state.w, True, True, gen)
+
+        def ref(batch):
+            dft.refiner_step(state.posenet, state.refiner,
+                             state.refine_optimizer, batch, state.w)
+
+        gen = torch.Generator(device=dev).manual_seed(3)
+        batches = lambda: loader.Loader(train_ds, 8)    # noqa: E731
+        est_fed, est_staged, n_est = fed_and_staged_ms(est, batches, dev)
+        ref_fed, ref_staged, _ = fed_and_staged_ms(ref, batches, dev)
+        pre_fed, _ = fed_ms(est, batches, dev, prefetch=True)
+        profile(lambda: fed_ms(est, batches, dev),
+                "dataset estimator epoch, Loader-fed", 1, est_fed * n_est,
+                ("sym_moments_train",))
+        print("dataset training " + json.dumps({
+            "views_per_object": views, "train_samples": len(train_ds),
+            "test_samples": len(test_ds),
+            "run_s": round(run_s, 3),
+            "epoch_s": [round(v, 3) for v in curves["epoch_seconds"]],
+            "sample_ms": split,
+            "loader_samples_per_s": {str(w): round(r, 3)
+                                     for w, r in rates.items()},
+            "estimator_ms": {"loader_fed": round(est_fed, 4),
+                             "staged": round(est_staged, 4),
+                             "prefetch_fed": round(pre_fed, 4)},
+            "refiner_ms": {"loader_fed": round(ref_fed, 4),
+                           "staged": round(ref_staged, 4)},
+            "launches": {"sym_moments_train": train_launches,
+                         "sym_moments": fwd_launches},
+            "curves": {k: [round(v, 6) for v in curves[k]]
+                       for k in ("losses", "train_dists", "test_dists")}}))
+    return train_launches, fwd_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1622,6 +1937,15 @@ def main() -> int:
     nn_kernel["calls"] = reconstruction_phase(dev)
     nn_kernel["launches"] = 2 * nn_kernel["calls"]
     nn_kernel["kernels_per_call"] = 2
+    # training from a dataset runs both moments kernels: their launches
+    # there join those of phases 5 and 7
+    ds_train, ds_fwd = dataset_training_phase(dev)
+    kernel["launches_by_phase"] = {"evaluation": kernel["launches"],
+                                   "dataset_training": ds_fwd}
+    kernel["launches"] += ds_fwd
+    train_kernel["launches_by_phase"] = {"training": train_kernel["launches"],
+                                         "dataset_training": ds_train}
+    train_kernel["launches"] += ds_train
     print(json.dumps({"kernels": [kernel, train_kernel, nn_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,3 +30,23 @@ def test_port_imports_without_jax():
     count, loaded = res.stdout.split(" ", 1)
     assert int(count) >= 30
     assert loaded.strip() == "[]"
+
+
+def test_port_imports_without_pil_or_matplotlib():
+    """As on the card's machine, which has neither Pillow nor matplotlib:
+    every port module imports with them blocked too, and none loads
+    them."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    probe = PROBE.replace(
+        '"autoposeestimation_tpu"):',
+        '"autoposeestimation_tpu", "PIL", "matplotlib"):').replace(
+        'or k == "autoposeestimation_tpu"',
+        'or k in ("autoposeestimation_tpu", "PIL", "matplotlib")'
+        ' or k.split(".")[0] in ("PIL", "matplotlib")')
+    assert probe.count("PIL") == 3
+    res = subprocess.run([sys.executable, "-c", probe], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    count, loaded = res.stdout.split(" ", 1)
+    assert int(count) >= 37
+    assert loaded.strip() == "[]"

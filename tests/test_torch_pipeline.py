@@ -307,14 +307,17 @@ def test_to_device_takes_channels_last():
 
 def test_checkpoint_round_trip(tmp_path, eval_pair):
     """JAX save_checkpoint -> the port's reader -> identical outputs; the
-    optimizer state beside the variables is left out."""
+    optimizer state beside the variables is read back apart, as the JAX
+    reader gives it."""
     (jpose, _, pose, _), (tpose, _) = eval_pair
     path = str(tmp_path / "pose_model")
     jckpt.save_checkpoint(path, pose, meta={"epoch": 3},
                           opt_state={"count": np.int32(5)})
     ck = checkpoints.load_checkpoint(path)
     assert ck["meta"] == {"epoch": 3}
-    assert set(ck) == {"variables", "meta"}
+    assert set(ck) == {"variables", "opt_state", "meta"}
+    assert ck["opt_state"] == {"count": 5}
+    assert ck["opt_state"]["count"].dtype == np.int32
     assert set(ck["variables"]) == set(pose)
     loaded = PoseNet(K).eval()
     loaded.load_state_dict(weights.posenet_state_dict(ck["variables"]))
