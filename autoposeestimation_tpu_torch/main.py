@@ -1,5 +1,6 @@
 """The application entry points (port of the part of
-`autoposeestimation_tpu/main.py::App` that pose training needs).
+`autoposeestimation_tpu/main.py::App` that pose training, live prediction
+and grasping need).
 
     from autoposeestimation_tpu_torch.main import App
     App(root).train_pose_estimation("synth", epochs=500)          # cuda
@@ -10,24 +11,56 @@ trains DenseFusion from the dataset that labeling wrote under
 `<root>/DenseFusion/trained_models/<ds_name>/`: pose_model.npz,
 pose_refine_model.npz, losses.json, trainer_resume.npz and
 logs/images/ (test_images_epoch_<N>.png, losses.png).
+
+    app = App(root, camera_factory=..., controller_factory=...)
+    app.run_live_prediction("synth", pipelined=True, batch=4)
+    app.grasp("synth", "mug", confirm=...)
+
+serve a camera (one frame at a time, or through `predict.serve_stream`)
+and grasp an object with the hand-eye transform of
+`<root>/hand_eye_calibration/data/handEye_tf.json`.
 """
 from __future__ import annotations
 
+import collections
 import os
-from dataclasses import dataclass
-from typing import Callable, Optional
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Optional
+
+import numpy as np
 
 from .data import loader, pose_dataset
-from .pipeline import tui
+from .hardware import hand_eye
+from .pipeline import grasping, predict, tui
 from .train import densefusion as dft
 from .utils import io
+
+# the 12-colour overlay table
+COLOR_DICT = {
+    name: {"tag": tag, "value": value}
+    for name, tag, value in [
+        ("red", "r", (255, 0, 0)), ("green", "g", (0, 255, 0)),
+        ("blue", "b", (0, 0, 255)), ("yellow", "y", (255, 255, 0)),
+        ("cyan", "c", (0, 255, 255)), ("magenta", "m", (255, 0, 255)),
+        ("orange", "o", (255, 128, 0)), ("purple", "p", (128, 0, 255)),
+        ("lime", "l", (128, 255, 0)), ("teal", "t", (0, 128, 128)),
+        ("pink", "k", (255, 128, 192)), ("white", "w", (255, 255, 255)),
+    ]
+}
+
+REFERENCE_POINT = np.asarray([0.0, -767.5, 0.0])
 
 
 @dataclass
 class App:
     root: str
+    camera_factory: Callable = None
+    controller_factory: Callable = None
     input_fn: Callable[[str], str] = input
     print_fn: Callable[[str], None] = print
+    reference_point: np.ndarray = field(
+        default_factory=lambda: REFERENCE_POINT.copy())
 
     def _select_dataset(self, kind: str = "segmentation"):
         base = os.path.join(self.root, "label_generator", "data_sets", kind)
@@ -35,6 +68,15 @@ class App:
         return tui.get_selection(f"{kind} dataset", names,
                                  input_fn=self.input_fn,
                                  print_fn=self.print_fn)
+
+    def _load_hand_eye(self) -> np.ndarray:
+        """The calibrated end-effector -> camera transform (mm), or the
+        identity where none was saved."""
+        path = os.path.join(self.root, "hand_eye_calibration", "data",
+                            "handEye_tf.json")
+        if os.path.exists(path):
+            return hand_eye.load_hand_eye(path)
+        return np.eye(4)
 
     def train_pose_estimation(self, ds_name: Optional[str] = None,
                               epochs: Optional[int] = None,
@@ -81,3 +123,85 @@ class App:
             image_dump_dir=os.path.join(out_dir, "logs", "images"),
             image_batches=lambda: loader.Loader(
                 image_ds, cfg.batch_size, shuffle=False, drop_last=False))
+
+    def run_live_prediction(self, ds_name: Optional[str] = None,
+                            max_frames: Optional[int] = None,
+                            frame_callback=None, models=None,
+                            pipelined: bool = False, in_flight: int = 4,
+                            batch: int = 1, device=None) -> int:
+        """The live loop: capture, predict, report, for `max_frames` frames
+        (None: until the camera fails); returns the frame count. Blocking,
+        one `full_prediction` a frame, or with `pipelined` through
+        `predict.serve_stream` (`in_flight` calls outstanding, `batch`
+        frames a call; results still come one frame at a time, in order).
+        Each frame prints an `fps:` line and goes to `frame_callback(frames,
+        prediction)`. `models` injects built `PredictionModels`; by default
+        the dataset's trained weights are loaded on `device` (cuda unless
+        given)."""
+        if models is None:
+            ds_name = ds_name or self._select_dataset("segmentation")
+            models = predict.get_prediction_models(self.root, ds_name,
+                                                   device=device)
+        camera = self.camera_factory()
+        meta = {"intr": camera.get_intrinsics(),
+                "depth_scale": camera.get_depth_scale()}
+        n = 0
+        if pipelined:
+            raw = collections.deque()
+
+            def capture():
+                m = 0
+                while max_frames is None or m < max_frames:
+                    frames = camera.get_frames(with_repair=True)
+                    if frames is None:
+                        return
+                    raw.append(frames)
+                    yield frames["image"], frames["depth"], meta
+                    m += 1
+
+            t0 = time.time()
+            for out in predict.serve_stream(capture(), models,
+                                            in_flight=in_flight,
+                                            batch=batch):
+                frames = raw.popleft()
+                n += 1
+                fps = n / max(time.time() - t0, 1e-9)
+                self.print_fn(f"fps: {fps:.1f}  objects: "
+                              f"{list(out['predictions'])}")
+                if frame_callback is not None:
+                    frame_callback(frames, out)
+            return n
+        while max_frames is None or n < max_frames:
+            frames = camera.get_frames(with_repair=True)
+            if frames is None:
+                break
+            t0 = time.time()
+            out = predict.full_prediction(frames["image"], frames["depth"],
+                                          meta, models)
+            fps = 1.0 / max(time.time() - t0, 1e-9)
+            self.print_fn(f"fps: {fps:.1f}  objects: "
+                          f"{list(out['predictions'])}")
+            if frame_callback is not None:
+                frame_callback(frames, out)
+            n += 1
+        return n
+
+    def teach_grasping(self, ds_name: str, cls: str, prediction: Dict) -> None:
+        """Store the robot's current pose (m) as the grasp of `cls` for the
+        predicted object pose `prediction` (position, rotation)."""
+        pose = self.controller_factory().get_pose(return_mm=False)
+        grasping.save_grasping_delta(self.root, ds_name, cls,
+                                     prediction["position"],
+                                     prediction["rotation"], pose)
+
+    def grasp(self, ds_name: str, cls: str, confirm=None,
+              device=None) -> bool:
+        """Predict from the 5 view points with the dataset's trained
+        weights (on `device`, cuda unless given) and grasp `cls` by its
+        taught delta."""
+        models = predict.get_prediction_models(self.root, ds_name,
+                                               device=device)
+        return grasping.execute_grasp(
+            self.controller_factory(), self.camera_factory(),
+            self._load_hand_eye(), models, self.root, ds_name, cls,
+            confirm=confirm)

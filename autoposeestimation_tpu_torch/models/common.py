@@ -19,9 +19,12 @@ BN_EPS = 1e-5  # flax BatchNorm's default epsilon
 def normalize_imagenet(img: torch.Tensor) -> torch.Tensor:
     """uint8-range RGB (..., 3, H, W) -> normalized f32 (ToTensor+Normalize)."""
     x = img.to(torch.float32) / 255.0
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
-    return (x - mean[:, None, None]) / std[:, None, None]
+    stats = torch.tensor((IMAGENET_MEAN, IMAGENET_STD), dtype=torch.float32)
+    if x.is_cuda:
+        # an asynchronous copy from pinned memory: a pageable one waits for
+        # the stream, which would stall the serving stream's dispatch
+        stats = stats.pin_memory().to(x.device, non_blocking=True)
+    return (x - stats[0, :, None, None]) / stats[1, :, None, None]
 
 
 def _interp_1d_weights(out_size: int, in_size: int, align_corners: bool,

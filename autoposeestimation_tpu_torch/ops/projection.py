@@ -5,7 +5,7 @@ serving path); intrinsics are a (4,) tensor (fx, fy, ppx, ppy).
 `zoom_window_bbox_np` is the dataset's numpy twin of `zoom_window_bbox`."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -129,12 +129,18 @@ def _lattice(start: torch.Tensor, win: torch.Tensor, crop: int):
                                         rounding_mode="floor")
 
 
-def resample_window(img: torch.Tensor, r0, c0, win, crop: int):
+def resample_window(img: torch.Tensor, r0, c0, win, crop: int,
+                    frame: Optional[torch.Tensor] = None):
     """Nearest-neighbour gather of (C, H, W) windows onto static (crop, crop)
     grids: windows S -> (S..., C, crop, crop). `win == crop` is an exact
-    slice."""
+    slice. With `frame` (S,), `img` holds frames (F, C, H, W) and window s
+    reads frame `frame[s]` (one gather for all of them)."""
     ii = _lattice(r0, win, crop)
     jj = _lattice(c0, win, crop)
+    if frame is not None:
+        chans = torch.arange(img.shape[1], device=img.device)
+        return img[frame[:, None, None, None], chans[None, :, None, None],
+                   ii[:, None, :, None], jj[:, None, None, :]]
     rows = img[:, ii]                                    # (C, S.., crop, W)
     cols = jj[None, ..., None, :].expand(rows.shape[:-1] + (crop,))
     return torch.gather(rows, -1, cols).movedim(0, -3)
@@ -170,16 +176,20 @@ def choose_masked_indices(window_mask: torch.Tensor, num_pt: int,
 
 def backproject_choose_zoom(depth: torch.Tensor, mask: torch.Tensor, intr,
                             depth_scale, r0, c0, win, crop: int, num_pt: int,
-                            uniforms: torch.Tensor):
+                            uniforms: torch.Tensor,
+                            frame: Optional[torch.Tensor] = None):
     """Crop -> choose -> backproject for the zoom windows of masks
-    (S, H, W) over one depth image (H, W).
+    (S, H, W) over one depth image (H, W), or, with `frame` (S,), over
+    depth frames (F, H, W) of which mask s belongs to frame `frame[s]`.
 
     Pixels are chosen on the (crop, crop) lattice of each window (one native
     pixel per cell), so `choose` addresses the resampled colour crop and the
     cloud backprojects native coordinates. Returns (cloud (S, num_pt, 3),
     choose (S, num_pt), count (S,)); `count` is the number of valid native
     mask pixels inside the window, 0 when the lattice holds none."""
-    h, w = depth.shape
+    if frame is not None:
+        depth = depth[frame]
+    h, w = depth.shape[-2:]
     depth = depth.to(torch.float32)
     masked_depth = torch.where(mask & (depth > 0), depth, 0.0)
     rows_i = torch.arange(h, device=depth.device)[:, None]

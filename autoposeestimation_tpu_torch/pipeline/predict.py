@@ -1,17 +1,23 @@
-"""The live multi-object prediction path (port of the single-frame path of
+"""The live multi-object prediction path (port of
 `autoposeestimation_tpu/pipeline/predict.py`).
 
   normalize -> U-Net -> softmax/argmax -> per-class best-component CCA
   -> zoom window crop + choose + backproject (per class) -> one PoseNet
   forward over all class slots -> iterative refiner -> per-class pose.
 
-Every class has a slot; `found` marks the live ones. The random draws of the
-point selection come from a `torch.Generator`, or are given as `uniforms`
-(K, num_points) in [0, 1) so that a caller can reproduce another
-implementation's draws exactly.
+Every class has a slot; `found` marks the live ones. `_predict_frame` runs
+one frame; `_predict_batch` runs B frames with the batch and class axes
+fused into B*K lanes, so a call launches as many kernels for B frames as
+for one. `full_prediction` serves one frame and waits for it;
+`serve_stream` keeps frames in flight on the card and returns them in
+order. The random draws of the point selection come from a
+`torch.Generator`, or are given as `uniforms` (K, num_points) per frame in
+[0, 1) so that a caller can reproduce another implementation's draws
+exactly. `get_robot2object` moves camera-frame poses into the robot frame.
 """
 from __future__ import annotations
 
+import collections
 import os
 import time
 from typing import Dict, NamedTuple, Optional
@@ -28,6 +34,7 @@ from ..ops import cca
 from ..ops import projection as proj
 from ..train import checkpoints
 from ..utils import io
+from ..utils import transforms as T
 from ..utils.device import resolve_device
 
 
@@ -58,9 +65,8 @@ def _pack_masks(masks: torch.Tensor) -> torch.Tensor:
     """Bool masks (..., H, W) -> (..., H, W//8) uint8, MSB first
     (np.unpackbits order); W % 8 == 0."""
     m = masks.reshape(masks.shape[:-1] + (-1, 8)).to(torch.int32)
-    bits = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32,
-                        device=masks.device)
-    return (m * bits).sum(-1).to(torch.uint8)
+    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=masks.device)
+    return (m << shifts).sum(-1).to(torch.uint8)
 
 
 def _unpack_masks(packed: np.ndarray) -> np.ndarray:
@@ -81,7 +87,9 @@ def _class_mask(score_plane, pred_arg, cls_id, min_count: int = 100,
     """Best connected component of class `cls_id` (1-based; a tensor of
     shape S for planes (S, H, W)) scored on its probability plane. Returns
     (component (S, H, W), found (S,), converged); `found` also needs more
-    than `min_count` class pixels."""
+    than `min_count` class pixels. `pred_arg` broadcasts against the
+    planes: (B, 1, H, W) with planes (B, S, H, W) gives B*S components in
+    one call."""
     cls_id = torch.as_tensor(cls_id, device=pred_arg.device)
     cls_mask = pred_arg == cls_id[..., None, None]
     count = cls_mask.sum((-2, -1))
@@ -139,6 +147,61 @@ def _predict_frame(models: PredictionModels, image, depth, intr,
     return out
 
 
+def _predict_batch(models: PredictionModels, images, depths, intr,
+                   depth_scale, uniforms) -> Dict[str, torch.Tensor]:
+    """B frames on the models' device: images uint8 (B, H, W, 3), depths
+    (B, H, W) in the camera's dtype, intr (4,), uniforms (B, K,
+    num_points). The outputs of `_predict_frame` with a leading batch axis;
+    frame i equals `_predict_frame` on frame i with draws uniforms[i].
+
+    The batch and class axes are fused into B*K lanes: one U-Net forward,
+    one CCA over all lanes, one windowed gather over all lanes (each from
+    its own frame) and one PoseNet + refiner forward over the lanes, so the
+    kernels launched do not grow with B."""
+    imgs = images.permute(0, 3, 1, 2)                        # (B, 3, H, W)
+    depths = depths.to(torch.float32)
+    b, h, w = depths.shape
+    k = len(models.classes)
+    dev = imgs.device
+    # NCHW, as the single-frame graph's input reaches cuDNN (its strides
+    # are not channels-last): at one layout the f32 logits of a frame do
+    # not depend on the batch, while channels-last algorithms round
+    # otherwise and flip argmax pixels
+    logits = models.seg_model(normalize_imagenet(imgs).contiguous())
+    probs = torch.softmax(logits, dim=1)
+    pred_arg = torch.argmax(probs, dim=1)                    # (B, H, W)
+    cls_ids = torch.arange(1, k + 1, device=dev)
+    masks, found, converged = _class_mask(
+        probs[:, 1:k + 1], pred_arg[:, None], cls_ids,
+        cca_scale=models.cca_scale, cca_sweeps=models.cca_sweeps,
+        cca_rule=models.cca_rule)
+    masks, found = masks.flatten(0, 1), found.flatten(0, 1)  # B*K lanes
+
+    lane_frame = torch.arange(b, device=dev).repeat_interleave(k)
+    r0, c0, win = proj.zoom_window_bbox(masks, models.crop, h, w)
+    clouds, chooses, counts = proj.backproject_choose_zoom(
+        depths, masks, intr, depth_scale, r0, c0, win, models.crop,
+        models.num_points, uniforms.reshape(b * k, -1), frame=lane_frame)
+    crops = normalize_imagenet(proj.resample_window(
+        imgs, r0, c0, win, models.crop, frame=lane_frame))
+    found = found & (counts > 0)
+
+    obj_idx = torch.arange(k, device=dev).repeat(b)
+    quat, trans = _pose_stage(models, crops, clouds, chooses, obj_idx,
+                              models.refine_iters)
+
+    def per_frame(t):
+        return t.reshape((b, k) + t.shape[1:])
+
+    masks = per_frame(masks)
+    out = {"found": per_frame(found), "masks": masks,
+           "quats": per_frame(quat), "positions": per_frame(trans),
+           "argmax": pred_arg, "cca_converged": converged.expand(b, k)}
+    if w % 8 == 0:
+        out["masks_packed"] = _pack_masks(masks)
+    return out
+
+
 def _intr_vec(meta: Dict) -> np.ndarray:
     intr = meta["intr"]
     return (intr.as_array() if hasattr(intr, "as_array") else np.asarray(
@@ -173,32 +236,49 @@ def _frame_inputs(image, depth, meta, device):
                          device=device))
 
 
-def _materialize(out: Dict, models: PredictionModels) -> Dict:
-    """One frame's device outputs -> the class-keyed prediction dict."""
-    found = out["found"].cpu().numpy()
-    quats = out["quats"].cpu().numpy()
-    positions = out["positions"].cpu().numpy()
-    masks = (_unpack_masks(out["masks_packed"].cpu().numpy())
-             if "masks_packed" in out else out["masks"].cpu().numpy())
-    cca_conv = out["cca_converged"].cpu().numpy()
+def _materialize(host: Dict[str, np.ndarray], models: PredictionModels,
+                 want_masks: bool = True) -> Dict:
+    """One frame's outputs, on the host -> the class-keyed prediction
+    dict; `want_masks=False` leaves the masks out."""
+    found, quats = host["found"], host["quats"]
+    positions, cca_conv = host["positions"], host["cca_converged"]
+    if want_masks:
+        masks = (_unpack_masks(host["masks_packed"])
+                 if "masks_packed" in host else host["masks"])
     predictions = {}
     for i, cls in enumerate(models.classes):
         if found[i]:
             predictions[cls] = {"position": positions[i],
-                                "rotation": quats[i],
-                                "mask": masks[i].astype(np.uint8) * 255}
+                                "rotation": quats[i]}
+            if want_masks:
+                predictions[cls]["mask"] = masks[i].astype(np.uint8) * 255
     return {"predictions": predictions,
             "cca_converged": {cls: bool(cca_conv[i])
                               for i, cls in enumerate(models.classes)}}
 
 
+def _fetched(out: Dict, want_masks: bool):
+    """The outputs that `_materialize` reads: the packed masks where the
+    graph made them (8x fewer bytes to copy)."""
+    names = ["found", "quats", "positions", "cca_converged"]
+    if want_masks:
+        names.append("masks_packed" if "masks_packed" in out else "masks")
+    return names
+
+
 def full_prediction(image: np.ndarray, depth: np.ndarray, meta: Dict,
                     models: PredictionModels,
                     generator: Optional[torch.Generator] = None,
-                    uniforms=None) -> Dict:
+                    uniforms=None, color_prediction: bool = False,
+                    color_dict: Optional[Dict] = None,
+                    with_bbox: bool = False) -> Dict:
     """{'predictions': {cls: {'mask', 'position', 'rotation'}},
     'cca_converged': {cls: bool},
-    'elapsed_times': {'segmentation', 'pose_estimation', 'total'}}.
+    'elapsed_times': {'segmentation', 'pose_estimation', 'total'}}, and
+    with `color_prediction` the painted overlays 'segmented_prediction'
+    and 'pose_prediction' (`color_dict` maps a class to a `main.
+    COLOR_DICT` entry; by default the classes take its colours in turn;
+    `with_bbox` adds each mask's quantized bbox).
 
     `image` uint8 RGB (H, W, 3); `depth` raw units (H, W); `meta` gives
     `intr` (Intrinsics or dict) and `depth_scale` (to meters).
@@ -213,12 +293,159 @@ def full_prediction(image: np.ndarray, depth: np.ndarray, meta: Dict,
         out = _predict_frame(models, *frame, u)
         out["found"] = out["found"].cpu()
         t1 = time.perf_counter()
-        out_dict = _materialize(out, models)
+        out_dict = _materialize({name: out[name].cpu().numpy()
+                                 for name in _fetched(out, True)}, models)
+    if color_prediction:
+        from ..main import COLOR_DICT
+        from . import visualize as viz
+
+        colors = list(COLOR_DICT.values())
+        cd = color_dict or {cls: colors[i % len(colors)]
+                            for i, cls in enumerate(models.classes)}
+        mp = {cls: models.model_points[i].cpu().numpy()
+              for i, cls in enumerate(models.classes)}
+        out_dict.update(viz.paint_prediction(image, out_dict, cd,
+                                             meta["intr"], mp,
+                                             with_bbox=with_bbox))
     t2 = time.perf_counter()
     out_dict["elapsed_times"] = {"segmentation": t1 - t0,
                                  "pose_estimation": t2 - t1,
                                  "total": t2 - t_start}
     return out_dict
+
+
+def serve_stream(frames, models: PredictionModels, in_flight: int = 4,
+                 want_masks: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 uniforms=None, batch: int = 1):
+    """Serve a stream of frames with `in_flight` device calls outstanding
+    (a generator). `frames` yields (image, depth, meta) as
+    `full_prediction` takes them; the results come back in order, one
+    `full_prediction`-form dict per frame (without 'elapsed_times'), with
+    no masks when `want_masks` is False.
+
+    `batch` > 1 runs that many frames per call through `_predict_batch`.
+    Frames are grouped while their intrinsics and depth_scale match (a
+    change dispatches the open batch); a short tail is padded by repeating
+    its last frame, and the padding's results are dropped.
+
+    The draws come from `generator` (on the device; seeded from the clock
+    when None) or from `uniforms`, an iterable of one (K, num_points) array
+    per frame in stream order. JAX's `serve_stream(key=...)` gives frame i
+    the draws of key `fold_in(key, i)` at batch 1 and of key
+    `split(fold_in(key, f0), batch)[i - f0]` in a batch that starts at
+    frame f0.
+
+    Dispatching does not wait for the device. Each call's inputs are
+    written to pinned host buffers, a ring of `in_flight` + 1 sets, and
+    copied to the card asynchronously; the depth goes in the camera's
+    dtype and is cast on the card. The outputs that the host reads are
+    copied into pinned host tensors asynchronously, and an event recorded
+    behind them; a call's results are read after its event has completed,
+    and only then is its buffer set filled again. Everything runs on the
+    current stream, so no tensor is reused while a copy still reads it: an
+    upload stream would overlap ~0.1 ms of copies a frame with compute and
+    is not worth its ordering."""
+    dev = models.device
+    k, npt = len(models.classes), models.num_points
+    batch = max(1, batch)
+    on_card = dev.type == "cuda"
+    draws = None if uniforms is None else iter(uniforms)
+    if draws is None and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(
+            time.time_ns() % (2 ** 31))
+    ring = [{} for _ in range(in_flight + 1)]
+    small = {}     # (intr, depth_scale) -> their tensors on the device
+    pending = collections.deque()
+    dispatched = 0
+
+    def upload(slot, name, arrays):
+        """`arrays` (one a frame) through the slot's pinned buffer."""
+        dtype = torch.from_numpy(arrays[0][:0]).dtype
+        shape = (batch,) + arrays[0].shape
+        buf = slot.get(name)
+        if buf is None or tuple(buf.shape) != shape or buf.dtype != dtype:
+            buf = slot[name] = torch.empty(shape, dtype=dtype,
+                                           pin_memory=on_card)
+        host = buf.numpy()
+        for i in range(batch):       # the padding repeats the last frame
+            host[i] = arrays[min(i, len(arrays) - 1)]
+        return buf.to(dev, non_blocking=True)
+
+    def dispatch(items, key):
+        nonlocal dispatched
+        slot = ring[dispatched % len(ring)]
+        dispatched += 1
+        with torch.inference_mode():
+            images = upload(slot, "images",
+                            [np.asarray(im, np.uint8) for im, _, _ in items])
+            depths = upload(slot, "depths",
+                            [np.asarray(d) for _, d, _ in items])
+            if draws is not None:
+                u = upload(slot, "uniforms", [v for _, _, v in items])
+            else:
+                u = torch.rand((batch, k, npt), generator=generator,
+                               device=generator.device).to(dev)
+            intr, scale = small[key]
+            if batch == 1:
+                out = {name: t[None] for name, t in _predict_frame(
+                    models, images[0], depths[0], intr, scale,
+                    u[0]).items()}
+            else:
+                out = _predict_batch(models, images, depths, intr, scale, u)
+            host = {name: out[name].to("cpu", non_blocking=True)
+                    for name in _fetched(out, want_masks)}
+        event = None
+        if on_card:
+            event = torch.cuda.Event()
+            event.record()
+        # `out` stays referenced until the results are read
+        return host, len(items), event, out
+
+    def collect():
+        host, n_valid, event, _ = pending.popleft()
+        if event is not None:
+            event.synchronize()
+        arrays = {name: t.numpy() for name, t in host.items()}
+        for i in range(n_valid):
+            yield _materialize({name: a[i] for name, a in arrays.items()},
+                               models, want_masks)
+
+    def submit(items, key):
+        while len(pending) > in_flight:   # frees the buffer set to reuse
+            yield from collect()
+        pending.append(dispatch(items, key))
+
+    open_key, open_items = None, []
+    for image, depth, meta in frames:
+        intr = _intr_vec(meta)
+        key = (tuple(np.asarray(intr).tolist()), float(meta["depth_scale"]))
+        if key not in small:
+            vals = torch.tensor(list(key[0]) + [key[1]], dtype=torch.float32)
+            if on_card:
+                vals = vals.pin_memory()
+            vals = vals.to(dev, non_blocking=True)
+            small[key] = (vals[:4], vals[4])
+        if open_items and key != open_key:
+            yield from submit(open_items, open_key)
+            open_items = []
+        open_key = key
+        drawn = None
+        if draws is not None:
+            drawn = np.asarray(next(draws), np.float32)
+            if drawn.shape != (k, npt):
+                raise ValueError(f"uniforms must be {(k, npt)} a frame: "
+                                 f"{drawn.shape}")
+        open_items.append((image, depth, drawn))
+        if len(open_items) == batch:
+            yield from submit(open_items, open_key)
+            open_items = []
+        while len(pending) > in_flight:
+            yield from collect()
+    if open_items:
+        yield from submit(open_items, open_key)
+    while pending:
+        yield from collect()
 
 
 def pose_from_mask(image, depth, meta: Dict, models: PredictionModels, mask,
@@ -338,3 +565,28 @@ def get_prediction_models(root: str, data_set_name: str,
                         seg_vars=seg_vars, pose_vars=pose_vars,
                         refine_vars=refine_vars, dtype=dtype,
                         emb_stride=emb_stride, device=device)
+
+
+def get_robot2object(prediction: Dict, controller, end2cam: np.ndarray
+                     ) -> Dict:
+    """Move a prediction's camera-frame poses into the robot frame, in
+    place: the controller's end-effector pose (mm, rotation vector) and the
+    hand-eye transform `end2cam` (mm). The transforms are built in f32 and
+    multiplied in f64, in mm, as the JAX version does."""
+    if not prediction["predictions"]:
+        return prediction
+    pose = controller.get_pose(return_mm=True)
+    rv = torch.tensor([pose["a"], pose["b"], pose["c"]], dtype=torch.float32)
+    robot2end = T.make_tf(T.rotvec_to_mat(rv), torch.tensor(
+        [pose["x"], pose["y"], pose["z"]], dtype=torch.float32)).numpy()
+    robot2cam = robot2end @ end2cam
+    for p in prediction["predictions"].values():
+        cam2obj = T.pose_to_tf(
+            torch.as_tensor(np.asarray(p["rotation"], np.float32)),
+            torch.as_tensor(np.asarray(p["position"], np.float32))
+            * 1000.0).numpy()
+        robot2obj = robot2cam @ cam2obj
+        p["position"] = robot2obj[:3, 3] / 1000.0
+        p["rotation"] = T.mat_to_quat(torch.as_tensor(
+            robot2obj[:3, :3], dtype=torch.float32)).numpy()
+    return prediction

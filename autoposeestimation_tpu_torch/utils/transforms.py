@@ -1,8 +1,8 @@
 """Rigid-transform algebra on tensors (port of
-`autoposeestimation_tpu/utils/transforms.py`, the functions the pose path
-and the reconstruction use). Quaternions are (w, x, y, z), euler angles
-static-frame XYZ ('sxyz'); every function takes arbitrary leading batch
-dimensions."""
+`autoposeestimation_tpu/utils/transforms.py`, the functions the pose path,
+the reconstruction and the robot frame use). Quaternions are (w, x, y, z),
+euler angles static-frame XYZ ('sxyz'), rotation vectors axis * angle;
+every function takes arbitrary leading batch dimensions."""
 from __future__ import annotations
 
 from typing import Optional
@@ -71,6 +71,53 @@ def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
         w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
         w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
     ], dim=-1)
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    """(w, x, y, z) -> (w, -x, -y, -z)."""
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def axangle_to_mat(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Axis-angle -> rotation matrix (..., 3, 3); `axis` (..., 3) need not
+    be unit length."""
+    axis = axis / torch.clamp(torch.linalg.vector_norm(axis, dim=-1,
+                                                       keepdim=True),
+                              min=1e-12)
+    x, y, z = axis.unbind(-1)
+    c, s = torch.cos(angle), torch.sin(angle)
+    cc = 1.0 - c
+    rows = [
+        torch.stack([x * x * cc + c, x * y * cc - z * s,
+                     x * z * cc + y * s], dim=-1),
+        torch.stack([y * x * cc + z * s, y * y * cc + c,
+                     y * z * cc - x * s], dim=-1),
+        torch.stack([z * x * cc - y * s, z * y * cc + x * s,
+                     z * z * cc + c], dim=-1),
+    ]
+    return torch.stack(rows, dim=-2)
+
+
+def rotvec_to_mat(rv: torch.Tensor) -> torch.Tensor:
+    """Rotation vector (axis * angle, (..., 3)), the robot's pose
+    convention -> rotation matrix; the identity at angle 0."""
+    angle = torch.linalg.vector_norm(rv, dim=-1)
+    x_axis = torch.zeros_like(rv)
+    x_axis[..., 0] = 1.0
+    return axangle_to_mat(torch.where(angle[..., None] > 1e-12, rv, x_axis),
+                          angle)
+
+
+def mat_to_rotvec(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> rotation vector (axis * angle); below an angle of
+    1e-7 the vector is 2 (x, y, z) of the quaternion."""
+    q = mat_to_quat(m)
+    w = torch.clamp(q[..., 0], -1.0, 1.0)
+    angle = 2.0 * torch.arccos(w)
+    sin_half = torch.sqrt(torch.clamp(1.0 - w * w, min=1e-24))
+    axis = q[..., 1:] / sin_half[..., None]
+    return torch.where(angle[..., None] > 1e-7, axis * angle[..., None],
+                       q[..., 1:] * 2.0)
 
 
 def euler_to_mat(ai: torch.Tensor, aj: torch.Tensor,

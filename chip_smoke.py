@@ -52,7 +52,23 @@ Phases (any failure raises and the script exits non-zero):
      rendered spheres and of the labels, the production run on the CPU
      (every ICP's size and iteration count and the cloud equal to the
      card's), and the small configuration (160x128, 12 views) on the card
-     and on the CPU.
+     and on the CPU,
+ 10. training from a dataset: `App.train_pose_estimation` at full width
+     through both phases from a written 5-object 640x480 dataset, with its
+     artifact, resume and card-vs-CPU dataset checks and the Loader's and
+     steps' timings,
+ 11. serving stream: `serve_stream` at batch 1 and at batch 4 (8 frames;
+     6, a padded tail) against the single-frame graph in f32 at the
+     headline geometry (found and masks equal, poses within POSE_ATOL);
+     its dispatch and reads with host syncs forbidden; frames/s of
+     `full_prediction` and `serve_stream` at batch 1 and 4 in bf16 at
+     emb_stride 8 and 2 (3 alternating rounds of 24 frames, medians),
+     kernels per call, busy share, peak memory, the graph's host dispatch
+     time, the U-Net's batch drift and device time by input layout; the
+     live loop (`App.run_live_prediction`, blocking and pipelined) and the
+     grasp flow (`grasping.get_predictions` through 5 view points, each
+     `get_robot2object` against an f64 recomputation, `execute_grasp`)
+     with a FakeDepthCam and a FakeRobot.
 With `--nn-timing ROOT` it runs only phase 8's timing, of the port in the
 checkout at ROOT, and prints it as one JSON line: run it on two checkouts
 back to back on one card to compare them alike. `--train-timing ROOT` does
@@ -143,12 +159,13 @@ def queued_ms(fn, reps: int, clock_mhz: float, warmup: int = 2):
 
 
 def profile(fn, label: str, per: int, wall_ms: float,
-            kernels: tuple = ()) -> None:
+            kernels: tuple = ()):
     """Device time that torch.profiler sees during `fn`, per unit (`per`
     units in the call), with the kernel count, the top kernels and the
     device's busy share of `wall_ms`, the unit's time measured without the
     profiler; and the device time and count of the kernels whose names
-    contain one of `kernels`."""
+    contain one of `kernels`. Returns (device ms, kernels) per unit, None
+    when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -166,7 +183,7 @@ def profile(fn, label: str, per: int, wall_ms: float,
               and not e.key.startswith("Optimizer.")]
     if not events:
         print(f"profile {label}: the profiler saw no device time")
-        return
+        return None
     device_ms = sum(e.self_device_time_total for e in events) / 1e3 / per
     launched = sum(e.count for e in events) / per
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
@@ -181,6 +198,7 @@ def profile(fn, label: str, per: int, wall_ms: float,
         hit_ms = sum(e.self_device_time_total for e in hits) / 1e3 / per
         print(f"profile {label}: {name} {count:.0f} launches, {hit_ms:.4f} "
               f"ms device time per unit")
+    return device_ms, launched
 
 
 def check(cond: bool, what: str) -> None:
@@ -1899,6 +1917,361 @@ def dataset_training_phase(dev):
     return train_launches, fwd_launches
 
 
+# --- phase 11: serving stream ----------------------------------------------------
+
+STREAM_MODEL = dict(num_points=1000, crop=320, refine_iters=2)
+STREAM_FRAMES = 24       # a timed window: the 4 ring views, cycled
+STREAM_MODES = ("full_prediction", "serve_stream batch 1",
+                "serve_stream batch 4")
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Any CUDA call that makes the host wait for the stream raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def stream_inputs(frames, meta, count: int):
+    return [(frames[i % len(frames)][0], frames[i % len(frames)][1], meta)
+            for i in range(count)]
+
+
+def compare_stream(name, got, want) -> int:
+    """Checks `serve_stream`'s results against the single-frame graph's,
+    frame by frame (found, masks equal; poses within POSE_ATOL); returns
+    the largest count of differing mask pixels (0 when it passes)."""
+    check(len(got) == len(want), f"{name}: {len(got)} results for "
+          f"{len(want)} frames")
+    worst, errs = 0, [0.0]
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(set(g["predictions"]) == set(w["predictions"]),
+              f"{name}, frame {i}: found {sorted(g['predictions'])} against "
+              f"{sorted(w['predictions'])}")
+        check(g["cca_converged"] == w["cca_converged"],
+              f"{name}, frame {i}: cca_converged")
+        for cls, p in w["predictions"].items():
+            q = g["predictions"][cls]
+            worst = max(worst, int((q["mask"] != p["mask"]).sum()))
+            errs.append(float(max(np.abs(q[k] - p[k]).max()
+                                  for k in ("position", "rotation"))))
+    found = [len(g["predictions"]) for g in got]
+    print(f"{name}: {len(got)} frames, found {found}, most differing mask "
+          f"pixels in a frame {worst}, max pose error {max(errs):.3e}")
+    check(worst == 0, f"{name}: masks differ in up to {worst} pixels")
+    check(max(errs) <= POSE_ATOL, f"{name}: pose error {max(errs)}")
+    return worst
+
+
+def unet_inputs(frames, dev):
+    """The 4 frames' U-Net input as `_predict_batch` gives it (NCHW) and
+    channels-last, and `_predict_frame`'s one frame at a time."""
+    from autoposeestimation_tpu_torch.models.common import normalize_imagenet
+
+    imgs = torch.as_tensor(np.stack([f[0] for f in frames]), device=dev)
+    x = normalize_imagenet(imgs.permute(0, 3, 1, 2))
+    singles = [normalize_imagenet(im.permute(2, 0, 1))[None] for im in imgs]
+    return {"NCHW": x.contiguous(),
+            "channels-last": x.contiguous(
+                memory_format=torch.channels_last)}, singles
+
+
+def segmentation_drift(models, frames) -> str:
+    """The U-Net over the 4 frames in one batch, in `_predict_batch`'s NCHW
+    and in channels-last, against `_predict_frame`'s one frame at a time:
+    the largest logit difference and the argmax pixels that differ."""
+    parts = []
+    with torch.inference_mode():
+        batches, singles = unet_inputs(frames, models.device)
+        single = torch.cat([models.seg_model(x) for x in singles])
+        for layout, x in batches.items():
+            batched = models.seg_model(x)
+            diff = (batched - single).abs().max().item()
+            flips = (batched.argmax(1) != single.argmax(1)).sum().item()
+            parts.append(f"{layout} input: logits max difference "
+                         f"{diff:.3e}, argmax pixels differing {flips} of "
+                         f"{single[:, 0].numel()}")
+    return "; ".join(parts)
+
+
+def stream_correctness(dev, frames, meta, model_points, classes) -> None:
+    """f32 (TF32 off, deterministic cuDNN): `serve_stream` at batch 1 and
+    at batch 4 (8 frames; 6 frames, a padded tail of 2) against
+    `full_prediction` on the same draws."""
+    from autoposeestimation_tpu_torch.pipeline import predict
+
+    models = predict.build_models(len(classes), model_points, classes,
+                                  dtype=torch.float32, emb_stride=8,
+                                  device=dev, **STREAM_MODEL)
+    print(f"serving stream, U-Net in f32 at batch 4 against one frame at a "
+          f"time: "
+          f"{segmentation_drift(models, frames)}")
+    inputs = stream_inputs(frames, meta, 8)
+    draws = np.random.default_rng(11).random(
+        (8, len(classes), models.num_points)).astype(np.float32)
+    want = [predict.full_prediction(im, d, m, models, uniforms=u)
+            for (im, d, m), u in zip(inputs, draws)]
+    for name, batch, count in (("batch 1", 1, 8), ("batch 4", 4, 8),
+                               ("batch 4, padded tail of 2", 4, 6)):
+        got = list(predict.serve_stream(inputs[:count], models, in_flight=2,
+                                        batch=batch, uniforms=draws[:count]))
+        compare_stream(f"serving stream f32 {name}", got, want[:count])
+
+
+def stream_modes(models, gen):
+    """Each timed mode: a function serving `inputs` to the end."""
+    from autoposeestimation_tpu_torch.pipeline import predict
+
+    def blocking(frames):
+        return [predict.full_prediction(im, d, m, models, generator=gen)
+                for im, d, m in frames]
+
+    def streamed(batch):
+        return lambda frames: list(predict.serve_stream(
+            frames, models, in_flight=4, batch=batch, generator=gen))
+
+    return dict(zip(STREAM_MODES, (blocking, streamed(1), streamed(4))))
+
+
+def graph_dispatch_ms(models, frames, meta, batch: int, reps: int = 8):
+    """Host ms to queue one call of the frame graph (`_predict_frame`, or
+    `_predict_batch` over `batch` frames) on inputs already on the card:
+    the part of a served call that is the graph's launches."""
+    from autoposeestimation_tpu_torch.pipeline import predict
+
+    dev = models.device
+    with torch.inference_mode():
+        imgs = torch.as_tensor(np.stack([f[0] for f in frames[:batch]]),
+                               device=dev)
+        deps = torch.as_tensor(np.stack([f[1] for f in frames[:batch]]),
+                               device=dev)
+        intr = torch.as_tensor(meta["intr"].as_array(), device=dev)
+        scale = torch.tensor(meta["depth_scale"], device=dev)
+        u = torch.rand((batch, len(models.classes), models.num_points),
+                       device=dev)
+        if batch == 1:
+            call = lambda: predict._predict_frame(  # noqa: E731
+                models, imgs[0], deps[0], intr, scale, u[0])
+        else:
+            call = lambda: predict._predict_batch(  # noqa: E731
+                models, imgs, deps, intr, scale, u)
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return 1e3 * host_s / reps
+
+
+def stream_timing(dev, frames, meta, model_points, classes, stride) -> dict:
+    """bf16 at the headline geometry: frames/s of each mode over
+    STREAM_FRAMES frames in 3 rounds that alternate the modes, the medians,
+    kernels per call, busy share, peak memory, the host's time to queue the
+    graph alone, the U-Net's device time at batch 4 by input layout; each
+    stream's dispatch and reads run with host syncs forbidden."""
+    from autoposeestimation_tpu_torch.pipeline import predict
+
+    models = predict.build_models(len(classes), model_points, classes,
+                                  dtype=torch.bfloat16, emb_stride=stride,
+                                  device=dev, **STREAM_MODEL)
+    print(f"serving stream emb_stride={stride}, U-Net in bf16 at batch 4 "
+          f"against one frame at a time (not gated): "
+          f"{segmentation_drift(models, frames)}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    inputs = stream_inputs(frames, meta, STREAM_FRAMES)
+    modes = stream_modes(models, gen)
+    for run in modes.values():                      # warm-up
+        run(inputs[:8])
+    torch.cuda.synchronize()
+    with no_host_sync():
+        for batch in (1, 4):
+            outs = list(predict.serve_stream(inputs[:8], models, in_flight=4,
+                                             batch=batch, generator=gen))
+            check(len(outs) == 8, f"batch {batch}: {len(outs)} results")
+    print(f"serving stream emb_stride={stride}: serve_stream at batch 1 and "
+          f"4 ran under torch.cuda.set_sync_debug_mode('error'): no host "
+          f"sync")
+    fps = {name: [] for name in modes}
+    for _ in range(3):
+        for name, run in modes.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = run(inputs)
+            fps[name].append(len(inputs) / (time.perf_counter() - t0))
+            check(len(outs) == len(inputs), f"{name}: {len(outs)} results")
+            for out in outs:
+                check_prediction(dict(out, elapsed_times=None),
+                                 frames[0][0].shape[:2])
+    result = {}
+    for (name, run), per_call in zip(modes.items(), (1, 1, 4)):
+        median = float(np.median(fps[name]))
+        torch.cuda.reset_peak_memory_stats(dev)
+        prof = profile(lambda: run(inputs[:8]),
+                       f"serving stream emb_stride={stride} {name}, per call",
+                       8 // per_call, 1e3 * per_call / median)
+        result[name] = {
+            "frames_per_s": [round(f, 4) for f in fps[name]],
+            "median": round(median, 4),
+            "ms_per_frame": round(1e3 / median, 4),
+            "frames_per_call": per_call,
+            "kernels_per_call": None if prof is None else round(prof[1], 1),
+            "busy_ms_per_call": None if prof is None else round(prof[0], 4),
+            "busy_share": None if prof is None else round(
+                prof[0] * median / (1e3 * per_call), 4),
+            "peak_gib": round(torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                              3),
+            "graph_dispatch_ms_per_call": round(graph_dispatch_ms(
+                models, frames, meta, per_call), 4)}
+    # the U-Net at batch 4 in each input layout: with the host in the loop
+    # it is host-bound, so its device time comes from the profiler
+    result["unet_batch4"] = {}
+    with torch.inference_mode():
+        batches, _ = unet_inputs(frames, dev)
+        for layout, x in batches.items():
+            wall = cuda_ms(lambda: models.seg_model(x), 4)
+            prof = profile(lambda: [models.seg_model(x) for _ in range(4)],
+                           f"serving stream emb_stride={stride} U-Net at "
+                           f"batch 4, {layout} input, per call", 4, wall)
+            result["unet_batch4"][layout] = {
+                "ms": round(wall, 4),
+                "device_ms": None if prof is None else round(prof[0], 4)}
+    b1, b4 = (result[m]["kernels_per_call"] for m in STREAM_MODES[1:])
+    if b1 is not None and b4 is not None:
+        check(b4 < 2 * b1, f"kernels per call grow with the batch: {b1} at "
+              f"batch 1, {b4} at batch 4")
+    result["sm_clock_power_after"] = nvidia_smi("clocks.sm,power.draw")
+    print(f"serving stream emb_stride={stride} " + json.dumps(result))
+    return result
+
+
+def live_and_grasp(dev, model_points, classes) -> None:
+    """`App.run_live_prediction` over a FakeDepthCam of the headline scene,
+    blocking and pipelined (batch 4), and `grasping.get_predictions` /
+    `execute_grasp` with a FakeRobot whose camera follows it."""
+    import tempfile
+
+    from autoposeestimation_tpu_torch.hardware import camera, robot
+    from autoposeestimation_tpu_torch.main import App
+    from autoposeestimation_tpu_torch.pipeline import grasping, predict
+    from autoposeestimation_tpu_torch.utils import synthetic
+
+    cfg, spheres, _ = synthetic.headline_scene()
+    cams = synthetic.ring_cameras(cfg, np.zeros(3))[:4]
+    models = predict.build_models(len(classes), model_points, classes,
+                                  dtype=torch.bfloat16, emb_stride=8,
+                                  device=dev, **STREAM_MODEL)
+    with tempfile.TemporaryDirectory() as root:
+        for kw in ({}, {"pipelined": True, "batch": 4, "in_flight": 4}):
+            lines = []
+            app = App(root, camera_factory=lambda: camera.FakeDepthCam(
+                cfg=cfg, spheres=spheres, robot2cam_fn=lambda: cams[0]),
+                print_fn=lines.append)
+            t0 = time.perf_counter()
+            n = app.run_live_prediction(max_frames=8, models=models, **kw)
+            wall = time.perf_counter() - t0
+            check(n == 8 and len(lines) == 8 and all(
+                line.startswith("fps:") for line in lines),
+                f"live loop {kw}: {n} frames, lines {lines}")
+            print(f"live loop {kw or 'blocking'}: 8 frames in {wall:.3f} s "
+                  f"(the FakeDepthCam renders each on the host); last line "
+                  f"{lines[-1]!r}")
+
+        hand_eye = np.eye(4)
+        hand_eye[:3, 3] = [0.0, 40.0, 60.0]
+        fr = robot.FakeRobot(fk_fn=robot.ring_fk(cams, hand_eye))
+        cam = camera.FakeDepthCam(
+            cfg=cfg, spheres=spheres,
+            robot2cam_fn=lambda: fr.robot2end() @ hand_eye)
+        check(grasping.move_to_grasp_position(fr, poll=0.0),
+              "the robot is not home")
+        views = []
+        to_robot = predict.get_robot2object
+
+        def recorded(prediction, controller, end2cam):
+            cam_frame = {c: dict(p) for c, p in
+                         prediction["predictions"].items()}
+            pose = controller.get_pose(return_mm=True)
+            out = to_robot(prediction, controller, end2cam)
+            views.append((cam_frame, pose, out["predictions"]))
+            return out
+
+        with mock.patch.object(predict, "get_robot2object", recorded):
+            ok, final = grasping.get_predictions(fr, cam, hand_eye, models,
+                                                 poll=0.0)
+        check(ok and len(views) == 5, f"get_predictions: {ok}, "
+              f"{len(views)} views")
+        worst = 0.0
+        for cam_frame, pose, robot_frame in views:
+            check(set(cam_frame) == set(robot_frame), "robot-frame classes")
+            robot2cam = rigid_f64(np.asarray([pose[c] for c in "abc"]),
+                                  [pose[c] for c in "xyz"]) @ hand_eye
+            for cls, p in cam_frame.items():
+                q = np.asarray(p["rotation"], np.float64)
+                cam2obj = np.eye(4)
+                cam2obj[:3, :3] = quat_mat_f64(q / np.linalg.norm(q))
+                cam2obj[:3, 3] = np.asarray(p["position"], np.float64) * 1e3
+                want = robot2cam @ cam2obj
+                got = robot_frame[cls]
+                worst = max(worst, float(np.abs(
+                    got["position"] - want[:3, 3] / 1e3).max()), float(
+                    np.abs(quat_mat_f64(np.asarray(got["rotation"],
+                                                   np.float64))
+                           - want[:3, :3]).max()))
+        check(worst <= POSE_ATOL, f"get_robot2object against f64: {worst}")
+        for cls, p in final.items():
+            check(np.isfinite(p["position"]).all()
+                  and np.isfinite(p["rotation"]).all(),
+                  f"{cls}: averaged pose not finite")
+        grasping.save_grasping_delta(root, "ds", classes[0], np.zeros(3),
+                                     [1.0, 0.0, 0.0, 0.0], fr.get_pose(
+                                         return_mm=False))
+        grasped = grasping.execute_grasp(fr, cam, hand_eye, models, root,
+                                         "ds", classes[0],
+                                         confirm=lambda m: True, poll=0.0)
+        check(isinstance(grasped, bool), "execute_grasp")
+        print(f"grasping: 5 views, found per view "
+              f"{[len(v[0]) for v in views]}, averaged {sorted(final)}, "
+              f"get_robot2object within {worst:.3e} of f64 (m / rotation), "
+              f"execute_grasp -> {grasped}, robot moves "
+              f"{len(fr.history)}")
+
+
+def rigid_f64(rotvec, trans) -> np.ndarray:
+    """4x4 from a rotation vector and a translation, in f64 (Rodrigues)."""
+    angle = np.linalg.norm(rotvec)
+    k = rotvec / angle if angle > 1e-12 else np.asarray([1.0, 0.0, 0.0])
+    kx = np.asarray([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    tf = np.eye(4)
+    tf[:3, :3] = (np.eye(3) + np.sin(angle) * kx
+                  + (1 - np.cos(angle)) * kx @ kx)
+    tf[:3, 3] = trans
+    return tf
+
+
+def quat_mat_f64(q) -> np.ndarray:
+    w, x, y, z = q
+    return np.asarray([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (w * y + x * z)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (w * x + y * z), 1 - 2 * (x * x + y * y)]])
+
+
+def serving_stream_phase(dev) -> None:
+    """Phase 11: the batched graph and `serve_stream` against the
+    single-frame graph in f32, their speed in bf16 at emb_stride 8 and 2,
+    the live loop and the grasp flow on the card."""
+    frames, meta, model_points, classes = headline_frames()
+    stream_correctness(dev, frames, meta, model_points, classes)
+    for stride in (8, 2):
+        stream_timing(dev, frames, meta, model_points, classes, stride)
+    live_and_grasp(dev, model_points, classes)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1940,6 +2313,7 @@ def main() -> int:
     # training from a dataset runs both moments kernels: their launches
     # there join those of phases 5 and 7
     ds_train, ds_fwd = dataset_training_phase(dev)
+    serving_stream_phase(dev)
     kernel["launches_by_phase"] = {"evaluation": kernel["launches"],
                                    "dataset_training": ds_fwd}
     kernel["launches"] += ds_fwd

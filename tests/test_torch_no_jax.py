@@ -1,9 +1,15 @@
 """The port runs without JAX: every module of `autoposeestimation_tpu_torch`
 imports in a fresh interpreter where `jax` and `autoposeestimation_tpu`
-cannot be imported, and none of them is loaded afterwards."""
+cannot be imported, and none of them is loaded afterwards. On a card (marker
+`cuda`; this file imports no JAX, so it runs there) `serve_stream` serves
+without one host sync."""
 import os
 import subprocess
 import sys
+
+import numpy as np
+import pytest
+import torch
 
 PROBE = """
 import importlib, pkgutil, sys
@@ -33,20 +39,59 @@ def test_port_imports_without_jax():
 
 
 def test_port_imports_without_pil_or_matplotlib():
-    """As on the card's machine, which has neither Pillow nor matplotlib:
-    every port module imports with them blocked too, and none loads
-    them."""
+    """As on the card's machine, which has neither Pillow, matplotlib nor
+    the RealSense SDK: every port module imports with them blocked too, and
+    none loads them."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     probe = PROBE.replace(
         '"autoposeestimation_tpu"):',
-        '"autoposeestimation_tpu", "PIL", "matplotlib"):').replace(
+        '"autoposeestimation_tpu", "PIL", "matplotlib", "pyrealsense2"):'
+    ).replace(
         'or k == "autoposeestimation_tpu"',
         'or k in ("autoposeestimation_tpu", "PIL", "matplotlib")'
-        ' or k.split(".")[0] in ("PIL", "matplotlib")')
-    assert probe.count("PIL") == 3
+        ' or k.split(".")[0] in ("PIL", "matplotlib", "pyrealsense2")')
+    assert probe.count("PIL") == 3 and probe.count("pyrealsense2") == 2
     res = subprocess.run([sys.executable, "-c", probe], cwd=root,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     count, loaded = res.stdout.split(" ", 1)
     assert int(count) >= 37
     assert loaded.strip() == "[]"
+
+
+@pytest.mark.cuda
+def test_serve_stream_never_syncs_the_host():
+    """`serve_stream` at batch 1 and 2 on the card, every dispatch and
+    read under `torch.cuda.set_sync_debug_mode("error")`: it raises on any
+    call that makes the host wait for the stream (a `.item()`, a pageable
+    copy, a `nonzero`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the host-sync check is CUDA's")
+    from autoposeestimation_tpu_torch.pipeline import predict
+    from autoposeestimation_tpu_torch.utils import synthetic
+    from autoposeestimation_tpu_torch.utils.io import Intrinsics
+
+    cfg = synthetic.SynthConfig(img_h=96, img_w=128, fx=220.0, fy=220.0)
+    spheres = [synthetic.SphereObject("a", np.asarray([40.0, 0.0, 35.0]),
+                                      35.0, (200, 40, 40))]
+    frames = []
+    for cam in synthetic.ring_cameras(cfg, np.zeros(3))[:3]:
+        color, depth, _ = synthetic.render(cfg, cam, spheres)
+        frames.append((color, np.round(depth).astype(np.uint16), {
+            "intr": Intrinsics(width=128, height=96, ppx=64.0, ppy=48.0,
+                               fx=220.0, fy=220.0), "depth_scale": 0.001}))
+    models = predict.build_models(
+        1, np.zeros((1, 8, 3), np.float32), ("a",), num_points=64, crop=32,
+        refine_iters=1, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for batch in (1, 2):
+        list(predict.serve_stream(frames, models, in_flight=2, batch=batch,
+                                  generator=gen))      # builds and warms up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs = list(predict.serve_stream(frames, models, in_flight=2,
+                                             batch=batch, generator=gen))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert len(outs) == 3
