@@ -1,5 +1,6 @@
-"""Host-side image augmentations of the pose dataset in numpy (port of
-`autoposeestimation_tpu/data/augment.py`, which calls Pillow).
+"""Host-side image augmentations of the pose and segmentation datasets in
+numpy (port of `autoposeestimation_tpu/data/augment.py`, which calls
+Pillow).
 
 Each function gives the arrays that the Pillow call there gives, bit for
 bit, so the port's dataset equals the JAX package's from the same seed
@@ -15,6 +16,11 @@ What is reproduced of Pillow (12.x):
     0x8000) >> 16.
   * `convert("HSV")` and back: Pillow's own float/double mix, rounding and
     truncation (`rgb_to_hsv`, `hsv_to_rgb`).
+  * `Image.crop`, and `Image.resize` with its default BICUBIC (22-bit
+    fixed-point separable resampling, a uint8 image between the two
+    passes) and with NEAREST, which runs as an affine transform: the
+    scale-only loop for "L", the generic transform for "I;16", as in
+    the rotation below.
   * `Image.rotate(angle)` with NEAREST, no expand, centre (w/2, h/2): the
     matrix rounded to 15 digits, the transpose shortcuts at 0 and 180 (90
     and 270 only for square images), and two resampling paths: "RGB" and
@@ -224,20 +230,24 @@ def _affine_fixed(img: np.ndarray, a: List[float]) -> np.ndarray:
     return _gather(img, yy >> 16, xx >> 16)
 
 
-def _scale_affine(img: np.ndarray, a: List[float]) -> np.ndarray:
+def _scale_affine(img: np.ndarray, a: List[float],
+                  out_hw: Optional[Tuple[int, int]] = None) -> np.ndarray:
+    """Pillow's `ImagingScaleAffine` (nearest, no shear) into an image of
+    `out_hw` (default: the input's size)."""
     h, w = img.shape[:2]
-    xin = np.empty(w, np.int64)
+    oh, ow = out_hw or (h, w)
+    xin = np.empty(ow, np.int64)
     xo = a[2] + a[0] * 0.5
-    for x in range(w):               # the C loop's running double sum
+    for x in range(ow):              # the C loop's running double sum
         xin[x] = -1 if xo < 0.0 else int(xo)
         xo += a[0]
     valid = np.flatnonzero((xin >= 0) & (xin < w))
-    yin = np.empty(h, np.int64)
+    yin = np.empty(oh, np.int64)
     yo = a[5] + a[4] * 0.5
-    for y in range(h):
+    for y in range(oh):
         yin[y] = -1 if yo < 0.0 else int(yo)
         yo += a[4]
-    out = np.zeros_like(img)
+    out = np.zeros((oh, ow) + img.shape[2:], img.dtype)
     if len(valid):
         xmin, xmax = valid[0], valid[-1] + 1
         xtab = np.where((xin >= 0) & (xin < w), xin, 0)[xmin:xmax]
@@ -247,10 +257,14 @@ def _scale_affine(img: np.ndarray, a: List[float]) -> np.ndarray:
     return out
 
 
-def _generic_affine(img: np.ndarray, a: List[float]) -> np.ndarray:
-    h, w = img.shape[:2]
-    yc = np.arange(h, dtype=np.float64)[:, None] + 0.5
-    xc = np.arange(w, dtype=np.float64)[None, :] + 0.5
+def _generic_affine(img: np.ndarray, a: List[float],
+                    out_hw: Optional[Tuple[int, int]] = None) -> np.ndarray:
+    """Pillow's `ImagingGenericTransform` with the affine map and nearest
+    sampling at pixel centres, into an image of `out_hw` (default: the
+    input's size)."""
+    oh, ow = out_hw or img.shape[:2]
+    yc = np.arange(oh, dtype=np.float64)[:, None] + 0.5
+    xc = np.arange(ow, dtype=np.float64)[None, :] + 0.5
     xx = a[0] * xc + a[1] * yc + a[2]
     yy = a[3] * xc + a[4] * yc + a[5]
     return _gather(img, _coord(yy), _coord(xx))
@@ -302,12 +316,114 @@ def rotate_joint(angle: float, img: np.ndarray, label: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
+# crop and resize
+# ---------------------------------------------------------------------------
+
+def crop(img: np.ndarray, box) -> np.ndarray:
+    """`Image.crop(box)`, box (left, upper, right, lower) rounded to
+    integers; the parts outside the image are zero."""
+    left, upper, right, lower = (int(round(v)) for v in box)
+    h, w = img.shape[:2]
+    out = np.zeros((lower - upper, right - left) + img.shape[2:], img.dtype)
+    r0, r1 = max(upper, 0), min(lower, h)
+    c0, c1 = max(left, 0), min(right, w)
+    if r1 > r0 and c1 > c0:
+        out[r0 - upper:r1 - upper, c0 - left:c1 - left] = img[r0:r1, c0:c1]
+    return out
+
+
+_PRECISION_BITS = 22     # Pillow's 8-bit resampling: 32 - 8 - 2
+
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """Pillow's `bicubic_filter` (a = -0.5), in double."""
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+def _bicubic_coeffs(in_size: int, out_size: int):
+    """Pillow's `precompute_coeffs` for BICUBIC over the whole axis and
+    `normalize_coeffs_8bpc`: (first source index (out,), taps (out, ksize)
+    int64 in 22-bit fixed point, zero past each output's window)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    # (int) truncates toward zero before the clamp
+    xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64),
+                      in_size) - xmin
+    x = np.arange(ksize)[None, :]
+    inside = x < xmax[:, None]
+    w = np.where(inside, _bicubic(((x + xmin[:, None]) - center[:, None]
+                                   + 0.5) * (1.0 / filterscale)), 0.0)
+    ww = np.zeros(out_size)
+    for t in range(ksize):           # the C loop's running double sum
+        ww = ww + w[:, t]
+    w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None],
+                 w)
+    scaled = w * (1 << _PRECISION_BITS)
+    kk = np.where(w < 0, np.trunc(-0.5 + scaled), np.trunc(0.5 + scaled))
+    return xmin, kk.astype(np.int64)
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One pass of Pillow's 8-bit resampling along `axis` (1: horizontal,
+    0: vertical): the int32 accumulator starts at 1 << 21, each tap adds
+    pixel * coefficient, and the sum is shifted down and clipped to uint8."""
+    xmin, kk = _bicubic_coeffs(img.shape[axis], out_size)
+    kk = kk.astype(np.int32)
+    last = img.shape[axis] - 1
+    src = np.moveaxis(img, axis, 0).astype(np.int32)
+    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1),
+                  np.int32)
+    shape = (out_size,) + (1,) * (src.ndim - 1)
+    for t in range(kk.shape[1]):
+        acc += src[np.minimum(xmin + t, last)] * kk[:, t].reshape(shape)
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_bicubic(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """`Image.resize(size)` of an "RGB" or "L" image (Pillow's default
+    BICUBIC; size (width, height)): `ImagingResample`, a horizontal pass
+    into a uint8 image, then a vertical pass; an axis whose size stays is
+    not resampled, and an equal size is a copy."""
+    ow, oh = size
+    out = img
+    if img.shape[1] != ow:
+        out = _resample_axis(out, ow, 1)
+    if img.shape[0] != oh:
+        out = _resample_axis(out, oh, 0)
+    return out.copy() if out is img else out
+
+
+def resize_nearest(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """`Image.resize(size, Image.NEAREST)` (size (width, height)) of the
+    image whose array `img` is: Pillow runs it as the affine transform
+    (w_in / w_out, 0, 0, 0, h_in / h_out, 0), which takes the scale-only
+    loop for uint8 ("L", "RGB") and the generic transform for uint16
+    ("I;16"); an equal size is a copy."""
+    ow, oh = size
+    h, w = img.shape[:2]
+    if (h, w) == (oh, ow):
+        return img.copy()
+    a = [w / ow, 0.0, 0.0, 0.0, h / oh, 0.0]
+    if img.dtype == np.uint16:
+        return _generic_affine(img, a, (oh, ow))
+    return _scale_affine(img, a, (oh, ow))
+
+
+# ---------------------------------------------------------------------------
 # crop and zoom
 # ---------------------------------------------------------------------------
 
 class CropAndZoom:
-    """Label-driven random square crop (the JAX `CropAndZoom`). Only the
-    box is ported; the crop's resize waits for the segmentation slice."""
+    """Label-driven random square crop, resized to `output_size` (the JAX
+    `CropAndZoom`)."""
 
     def __init__(self, output_size: int = 480, bbox_increase: float = 1.1,
                  to_small: float = 0.8, to_big: float = 1.2,
@@ -390,3 +506,11 @@ class CropAndZoom:
                 bbox = self._inside(bbox, size)
 
         return [bbox[2], bbox[0], bbox[3], bbox[1]]  # (l, u, r, d)
+
+    def __call__(self, img: np.ndarray, label: np.ndarray):
+        """(img, label) cropped to the box and resized to output_size:
+        the image bicubic, the label nearest."""
+        box = self.compute_box(label)
+        size = (self.output_size, self.output_size)
+        return (resize_bicubic(crop(img, box), size),
+                resize_nearest(crop(label, box), size))

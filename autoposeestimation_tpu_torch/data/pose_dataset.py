@@ -11,10 +11,12 @@ for the augmentation and the extra-sample pick, `default_rng(seed)` for the
 point draws in train mode, and a per-item `default_rng((seed, index))` in
 test mode, so every evaluation sees the same points.
 
-An item is built in three steps, each a method, so that their costs can be
+An item is built in steps, each a method, so that their costs can be
 measured apart: `load` (read and decode), `augment` (colour jitter and the
-joint rotation, train mode only) and `sample` (choose pixels, backproject,
-subsample the model).
+joint rotation, train mode only), `zoom` (with `crop_and_zoom`, train mode
+only: a random label-driven crop resized to `crop` pixels, the intrinsics
+rewritten to it) and `sample` (choose pixels, backproject, subsample the
+model).
 """
 from __future__ import annotations
 
@@ -38,11 +40,6 @@ class PoseDataset:
                  num_pt_mesh: int = 1000, crop: int = 320, seed: int = 0,
                  crop_and_zoom: bool = False, return_raw: bool = False,
                  rot_degrees: float = 180.0, pose_source: str = "tf_chain"):
-        if crop_and_zoom:
-            raise NotImplementedError(
-                "crop_and_zoom needs CropAndZoom.__call__'s resize, which is "
-                "ported with the segmentation slice (ROADMAP.md Queue 1, "
-                "item 3)")
         # "tf_chain": cam2robot @ robot2object; "meta_fields": the label
         # meta's camera-frame position/rotation
         self.pose_source = pose_source
@@ -50,6 +47,9 @@ class PoseDataset:
         # test-mode extras for the per-epoch image dumps: the full frame and
         # the intrinsics vector
         self.return_raw = return_raw
+        # train mode: random label-driven zoom crops of `crop` pixels, the
+        # intrinsics rewritten to the crop frame
+        self.crop_and_zoom = crop_and_zoom
         ds_dir = io.dataset_dir(root, "pose_estimation", data_set_name)
         self.mode = mode
         self.num_pt = num_pt
@@ -145,24 +145,44 @@ class PoseDataset:
         img, label, depth = aug.rotate_joint(angle, img, label, depth)
         return img, label, depth, augment_rotation
 
+    def zoom(self, img: np.ndarray, label: np.ndarray, depth: np.ndarray,
+             intr) -> Tuple:
+        """The crop-and-zoom of image, label and depth to `crop` pixels:
+        (img, label, depth, (fx, fy, ppx, ppy) in the crop frame)."""
+        box = aug.CropAndZoom(self.crop, rng=self.rng).compute_box(label)
+        left, upper, right, lower = box
+        sx = self.crop / max(right - left, 1)
+        sy = self.crop / max(lower - upper, 1)
+        size = (self.crop, self.crop)
+        img = aug.resize_bicubic(aug.crop(img, box), size)
+        label = aug.resize_nearest(aug.crop(label, box), size)
+        depth = aug.resize_nearest(aug.crop(depth, box), size)
+        return img, label, depth, (intr.fx * sx, intr.fy * sy,
+                                   (intr.ppx - left) * sx,
+                                   (intr.ppy - upper) * sy)
+
     def __getitem__(self, index: int) -> Optional[Dict[str, np.ndarray]]:
         img, depth, label, image_meta, meta = self.load(index)
         augment_rotation = np.eye(4)
         if self.add_noise:
             img, label, depth, augment_rotation = self.augment(img, label,
                                                                depth)
+        intr = None
+        if self.crop_and_zoom and self.mode == "train":
+            img, label, depth, intr = self.zoom(img, label, depth,
+                                                image_meta["intr"])
         return self.sample(index, img, depth, label, image_meta, meta,
-                           augment_rotation)
+                           augment_rotation, intr)
 
     def sample(self, index: int, img_np: np.ndarray, depth: np.ndarray,
                label_np: np.ndarray, image_meta: Dict, meta: Dict,
-               augment_rotation: np.ndarray
+               augment_rotation: np.ndarray, intr: Optional[Tuple] = None
                ) -> Optional[Dict[str, np.ndarray]]:
         """The item's arrays from its (augmented) frame; None when the mask
-        holds no valid depth inside the window."""
+        holds no valid depth inside the window. `intr` (fx, fy, ppx, ppy)
+        replaces the frame's intrinsics (a zoomed crop's)."""
         item_rng = (self.np_rng if self.mode == "train"
                     else np.random.default_rng((self.seed, index)))
-        intr = image_meta["intr"]
         obj = self.classes.index(meta["cls_name"])
 
         if self.pose_source == "meta_fields":
@@ -175,7 +195,10 @@ class PoseDataset:
             cam2object = np.linalg.inv(augment_rotation) @ cam2object
         target_r = cam2object[:3, :3]
         target_t = cam2object[:3, 3] / 1000.0  # to meters
-        fx, fy, ppx, ppy = intr.fx, intr.fy, intr.ppx, intr.ppy
+        if intr is None:
+            frame = image_meta["intr"]
+            intr = (frame.fx, frame.fy, frame.ppx, frame.ppy)
+        fx, fy, ppx, ppy = intr
 
         depth_np = depth.astype(np.float32)
         mask = (label_np == 255) & (depth_np != 0)

@@ -1,8 +1,15 @@
 """The application entry points (port of the part of
-`autoposeestimation_tpu/main.py::App` that pose training, live prediction
-and grasping need).
+`autoposeestimation_tpu/main.py::App` that segmentation and pose training,
+live prediction and grasping need).
 
     from autoposeestimation_tpu_torch.main import App
+    App(root).train_segmentation("synth", epochs=500)             # cuda
+
+trains the segmentation U-Net from the dataset under
+`<root>/label_generator/data_sets/segmentation/<ds_name>` and writes
+`<root>/segmentation/trained_models/<ds_name>/Unet_resnet34.ckpt.npz`, the
+weights that serving loads, and logs.json.
+
     App(root).train_pose_estimation("synth", epochs=500)          # cuda
     App(root).train_pose_estimation("synth", device="cpu", ...)
 
@@ -30,11 +37,16 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 
-from .data import loader, pose_dataset
+from . import weights
+from .data import loader, pose_dataset, segmentation_dataset
 from .hardware import hand_eye
+from .models.unet import UNet
 from .pipeline import grasping, predict, tui
+from .train import checkpoints
 from .train import densefusion as dft
+from .train import segmentation as seg
 from .utils import io
+from .utils.device import resolve_device
 
 # the 12-colour overlay table
 COLOR_DICT = {
@@ -77,6 +89,43 @@ class App:
         if os.path.exists(path):
             return hand_eye.load_hand_eye(path)
         return np.eye(4)
+
+    def _load_seg_model(self, ds_name: str, num_classes: int, device=None
+                        ) -> UNet:
+        """The dataset's trained segmentation U-Net (f32, eval mode) on
+        `device` (cuda unless given)."""
+        model = UNet(num_classes)
+        model.load_state_dict(weights.unet_state_dict(
+            checkpoints.load_checkpoint(os.path.join(
+                self.root, "segmentation", "trained_models", ds_name,
+                "Unet_resnet34.ckpt"))["variables"]))
+        return model.eval().to(resolve_device(device))
+
+    def train_segmentation(self, ds_name: Optional[str] = None,
+                           epochs: Optional[int] = None, device=None,
+                           **overrides) -> Dict:
+        """Train the dataset's segmentation U-Net on `device` (cuda by
+        default) in bf16, on 480-pixel crops; `overrides` set `SegConfig`
+        fields. Writes `<root>/segmentation/trained_models/<ds_name>/
+        Unet_resnet34.ckpt.npz` (the best valid mIoU) and logs.json beside
+        it."""
+        ds_name = ds_name or self._select_dataset("segmentation")
+        classes = io.read_lines(os.path.join(
+            io.dataset_dir(self.root, "segmentation", ds_name),
+            "classes.txt"))
+        cfg = seg.SegConfig(classes=len(classes) + 1, **overrides)
+        if epochs is not None:
+            cfg.epochs = epochs
+        train_ds, valid_ds = (segmentation_dataset.SegmentationDataset(
+            self.root, ds_name, mode=mode, label_mode="pred")
+            for mode in ("train", "test"))
+        out_dir = os.path.join(self.root, "segmentation", "trained_models",
+                               ds_name)
+        return seg.segmentation_training(
+            lambda: loader.Loader(train_ds, cfg.batch_size),
+            lambda: loader.Loader(valid_ds, cfg.batch_size, shuffle=False,
+                                  drop_last=False),
+            cfg, out_dir=out_dir, device=device)
 
     def train_pose_estimation(self, ds_name: Optional[str] = None,
                               epochs: Optional[int] = None,

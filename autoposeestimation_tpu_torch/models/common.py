@@ -101,10 +101,39 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """ConvTranspose2d computing in `dtype` over f32 parameters. flax's
+    `nn.ConvTranspose((4, 4), strides=2, padding="SAME")` is
+    `ConvTranspose2d(in, out, 4, 2, 1)` with the kernel flipped in space
+    (`weights.py`'s "convT" conversion)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 padding: int = 0, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_ch, out_ch, kernel, stride=stride,
+                         padding=padding, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias,
+                                  self.stride, self.padding)
+
+
 class BatchNorm2d(nn.Module):
-    """Inference BatchNorm over running statistics, flax's arithmetic:
+    """flax `nn.BatchNorm(momentum=0.9)` with its arithmetic:
     (x - mean) * (rsqrt(var + eps) * scale) + bias in f32, cast to
-    `dtype`. Holds exactly the four entries the JAX tree has."""
+    `dtype`. Holds exactly the four entries the JAX tree has.
+
+    In eval mode (`module.eval()`) mean and var are the running statistics.
+    In train mode they are the batch's, over (N, H, W) in f32: the mean and
+    the biased variance E[x^2] - E[x]^2 clipped at 0, differentiated by
+    autograd; the running statistics then move to 0.9 * running + 0.1 *
+    batch, the biased variance included (`F.batch_norm` would store the
+    unbiased one)."""
+
+    momentum = 0.9
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -115,9 +144,21 @@ class BatchNorm2d(nn.Module):
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
-        y = ((x.to(torch.float32) - self.running_mean[:, None, None])
-             * mul[:, None, None] + self.bias[:, None, None])
+        xf = x.to(torch.float32)
+        if self.training:
+            mean = xf.mean((0, 2, 3))
+            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean,
+                              min=0.0)
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        y = ((xf - mean[:, None, None]) * mul[:, None, None]
+             + self.bias[:, None, None])
         return y.to(self.compute_dtype)
 
 
@@ -140,9 +181,11 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> None:
     weights on every device). Modules with a `reset_identity` method (the
     refiner's final layers) re-apply their own init afterwards."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = m.weight
-            fan_in = w.shape[1] * math.prod(w.shape[2:])
+            # a transposed conv's weight is (in, out, kh, kw)
+            fan_in = (w.shape[0 if isinstance(m, nn.ConvTranspose2d) else 1]
+                      * math.prod(w.shape[2:]))
             # stddev of a unit normal truncated to [-2, 2]
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             with torch.no_grad():

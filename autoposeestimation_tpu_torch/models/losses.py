@@ -1,8 +1,9 @@
-"""DenseFusion ADD(-S) losses (differentiable), the pose-extraction helpers
-and the ADD(-S) metric (port of the pose part of `autoposeestimation_tpu/
-models/losses.py`). Everything is batched over a leading sample axis. The
-rebased clouds the losses return for the refiner are detached, as the JAX
-version stops their gradient."""
+"""DenseFusion ADD(-S) losses (differentiable), the pose-extraction helpers,
+the ADD(-S) metric and the segmentation loss and metrics (port of
+`autoposeestimation_tpu/models/losses.py`). Everything is batched over a
+leading sample axis. The rebased clouds the losses return for the refiner
+are detached, as the JAX version stops their gradient. Segmentation logits
+are NCHW; no function here makes the host wait for the device."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -146,3 +147,63 @@ def add_metric(quat, trans, target, model_points, is_sym,
         sym_per = torch.sqrt(torch.clamp(d2.amin(dim=2), min=0.0))
         per = torch.where(is_sym.to(torch.bool)[:, None], sym_per, per)
     return per.mean(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# segmentation
+# ---------------------------------------------------------------------------
+
+def jaccard_loss(labels: torch.Tensor, logits: torch.Tensor,
+                 eps: float = 1e-7, per_column: bool = False
+                 ) -> torch.Tensor:
+    """Soft-jaccard loss over the classes present in the batch; labels
+    (B, H, W) int, logits (B, C, H, W). `per_column=True` is the
+    reference's exact reduction, which sums over batch and height only and
+    averages the per-(class, image column) IoUs."""
+    c = logits.shape[1]
+    probas = torch.softmax(logits, dim=1)
+    classes = torch.arange(c, device=logits.device)
+    onehot = (labels[:, None] == classes[None, :, None, None]).to(
+        probas.dtype)
+    dims = (0, 2) if per_column else (0, 2, 3)
+    intersection = (probas * onehot).sum(dims)      # (C, W) or (C,)
+    union = (probas + onehot).sum(dims) - intersection
+    per_class = intersection / (union + eps)
+    present = onehot.sum((0, 2, 3)) > 0
+    n_present = present.to(per_class.dtype).sum()
+    if per_column:
+        masked = torch.where(present[:, None], per_class, 0.0)
+        mean = masked.sum() / torch.clamp(n_present * masked.shape[1],
+                                          min=1.0)
+    else:
+        mean = torch.where(present, per_class, 0.0).sum() / torch.clamp(
+            n_present, min=1.0)
+    return 1.0 - mean
+
+
+def confusion_matrix(pred: torch.Tensor, labels: torch.Tensor,
+                     num_classes: int) -> torch.Tensor:
+    """(C, C) int64 counts, rows the ground truth."""
+    x = (pred.reshape(-1) + num_classes * labels.reshape(-1)).to(torch.int64)
+    counts = torch.zeros(num_classes ** 2, dtype=torch.int64,
+                         device=x.device).scatter_add_(0, x,
+                                                       torch.ones_like(x))
+    return counts.reshape(num_classes, num_classes)
+
+
+def iou_from_confusion(conf: torch.Tensor):
+    """(per-class IoU (C,), mIoU over classes 1..): background is left out
+    of the mean; an absent class (no pixel predicted or labelled) has IoU
+    NaN and leaves the mean."""
+    conf = conf.to(torch.float32)
+    tp = torch.diagonal(conf)
+    fp = conf.sum(0) - tp
+    fn = conf.sum(1) - tp
+    denom = tp + fp + fn
+    iou = torch.where(denom > 0, tp / torch.clamp(denom, min=1.0),
+                      torch.nan)
+    fg = iou[1:]
+    valid = ~torch.isnan(fg)
+    miou = torch.where(valid, fg, 0.0).sum() / torch.clamp(
+        valid.to(torch.float32).sum(), min=1.0)
+    return iou, miou

@@ -1,7 +1,8 @@
 """ResNet encoders (port of `autoposeestimation_tpu/models/resnet.py`): the
-BatchNorm torchvision family for the U-Net encoder, in inference mode, and
-the BN-free dilated ResNet18 of the DenseFusion PSPNet. Submodule names
-follow torchvision (`conv1`, `layer1.0.bn2`, `downsample.0`)."""
+BatchNorm torchvision family for the U-Net encoder (its BatchNorms follow
+the module's `train()` / `eval()` mode), and the BN-free dilated ResNet18
+of the DenseFusion PSPNet. Submodule names follow torchvision (`conv1`,
+`layer1.0.bn2`, `downsample.0`)."""
 from __future__ import annotations
 
 from typing import List, Sequence
@@ -40,12 +41,13 @@ class BasicBlockBN(nn.Module):
 
 class ResNetEncoder(nn.Module):
     """ResNet18/34 encoder returning the five U-Net skips [/2, /4, /8, /16,
-    /32]; the max-pool is 3x3 stride 2 with -inf padding."""
+    /32]; the max-pool is 3x3 stride 2 with -inf padding. `in_ch` is the
+    input's channel count (flax takes it from the input)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, in_ch: int = 3):
         super().__init__()
-        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False, dtype=dtype)
+        self.conv1 = Conv2d(in_ch, 64, 7, 2, 3, bias=False, dtype=dtype)
         self.bn1 = BatchNorm2d(64, dtype)
         in_ch = 64
         for stage, (blocks, width) in enumerate(

@@ -1,7 +1,8 @@
 """U-Net with a ResNet34 encoder (port of `autoposeestimation_tpu/models/
 unet.py` at `out_stride=1`): five decoder blocks (256, 128, 64, 32, 16),
 each nearest-2x upsample, crop to the skip, concat, two conv-BN-ReLU; a 3x3
-f32 head. NCHW in, NCHW logits out."""
+f32 head. NCHW in, NCHW logits out. The BatchNorms follow the module's
+`train()` / `eval()` mode."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -37,14 +38,15 @@ class DecoderBlock(nn.Module):
 
 
 class UNet(nn.Module):
-    """Input normalized NCHW f32; output f32 logits (B, classes, H, W)."""
+    """Input normalized NCHW f32 with `in_ch` channels (7 for the
+    background-subtraction model); output f32 logits (B, classes, H, W)."""
 
     def __init__(self, classes: int,
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
                  encoder_stages: Sequence[int] = (3, 4, 6, 3),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, in_ch: int = 3):
         super().__init__()
-        self.encoder = ResNetEncoder(encoder_stages, dtype)
+        self.encoder = ResNetEncoder(encoder_stages, dtype, in_ch)
         skip_ch = (256, 128, 64, 64, 0)
         blocks, in_ch = [], 512
         for features, sc in zip(decoder_channels, skip_ch):

@@ -1,10 +1,13 @@
 """The weight bridge between the JAX package's flax variable trees (nested
 dicts of numpy arrays, as `train/checkpoints.load_checkpoint` returns them)
-and the port's state_dicts for `UNet`, `PoseNet` and `PoseRefineNet`, both
-ways: `to_state_dict` reads a tree, `to_variables` writes one.
+and the port's state_dicts for `UNet`, `PoseNet`, `PoseRefineNet` and the
+segmentation registry's `LinkNet`, `PSPNetSeg` and `SegNet`, both ways:
+`to_state_dict` reads a tree, `to_variables` writes one.
 
 Each model has a plan: one (flax path, state_dict key, conversion) entry per
-leaf. Conversions: conv kernel HWIO -> OIHW, dense kernel (I, O) -> (O, I),
+leaf. Conversions: conv kernel HWIO -> OIHW, transposed-conv kernel HWIO ->
+(I, O, H, W) flipped in space (flax's `ConvTranspose` does not flip it,
+`F.conv_transpose2d` does), dense kernel (I, O) -> (O, I),
 PReLU slope () -> (1,), everything else copied (BatchNorm scale/bias ->
 weight/bias, batch_stats mean/var -> running_mean/running_var)."""
 from __future__ import annotations
@@ -13,6 +16,8 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from .models.segnet import DECODER_WIDTHS, ENCODER_WIDTHS
 
 Entry = Tuple[Tuple[str, ...], str, str]
 
@@ -37,16 +42,15 @@ def _bn(plan: List[Entry], fp, key: str) -> None:
                  "copy"))
 
 
-def unet_plan(encoder_stages: Sequence[int] = (3, 4, 6, 3)) -> List[Entry]:
-    plan: List[Entry] = []
-    enc = ("ResNetEncoder_0",)
-    _conv(plan, enc + ("Conv_0",), "encoder.conv1")
-    _bn(plan, enc + ("BatchNorm_0",), "encoder.bn1")
+def _encoder(plan: List[Entry], enc, prefix: str,
+             encoder_stages: Sequence[int]) -> None:
+    _conv(plan, enc + ("Conv_0",), prefix + "conv1")
+    _bn(plan, enc + ("BatchNorm_0",), prefix + "bn1")
     k = 0
     for stage, blocks in enumerate(encoder_stages):
         for b in range(blocks):
             f = enc + (f"BasicBlockBN_{k}",)
-            t = f"encoder.layer{stage + 1}.{b}"
+            t = f"{prefix}layer{stage + 1}.{b}"
             _conv(plan, f + ("Conv_0",), t + ".conv1")
             _bn(plan, f + ("BatchNorm_0",), t + ".bn1")
             _conv(plan, f + ("Conv_1",), t + ".conv2")
@@ -55,12 +59,62 @@ def unet_plan(encoder_stages: Sequence[int] = (3, 4, 6, 3)) -> List[Entry]:
                 _conv(plan, f + ("Conv_2",), t + ".downsample.0")
                 _bn(plan, f + ("BatchNorm_2",), t + ".downsample.1")
             k += 1
+
+
+def unet_plan(encoder_stages: Sequence[int] = (3, 4, 6, 3)) -> List[Entry]:
+    """The U-Net's plan; the stem's input width comes from the arrays, so
+    a 7-channel U-Net uses it too."""
+    plan: List[Entry] = []
+    _encoder(plan, ("ResNetEncoder_0",), "encoder.", encoder_stages)
     for i in range(5):
         f = (f"DecoderBlock_{i}",)
         _conv(plan, f + ("Conv_0",), f"decoder.{i}.conv1")
         _bn(plan, f + ("BatchNorm_0",), f"decoder.{i}.bn1")
         _conv(plan, f + ("Conv_1",), f"decoder.{i}.conv2")
         _bn(plan, f + ("BatchNorm_1",), f"decoder.{i}.bn2")
+    _conv(plan, ("Conv_0",), "head", bias=True)
+    return plan
+
+
+def linknet_plan(encoder_stages: Sequence[int] = (3, 4, 6, 3)
+                 ) -> List[Entry]:
+    plan: List[Entry] = []
+    _encoder(plan, ("ResNetEncoder_0",), "encoder.", encoder_stages)
+    for i in range(4):
+        f = (f"LinkNetDecoderBlock_{i}",)
+        t = f"decoder.{i}"
+        _conv(plan, f + ("Conv_0",), t + ".conv1")
+        _bn(plan, f + ("BatchNorm_0",), t + ".bn1")
+        plan.append((("params",) + f + ("ConvTranspose_0", "kernel"),
+                     t + ".deconv.weight", "convT"))
+        _bn(plan, f + ("BatchNorm_1",), t + ".bn2")
+        _conv(plan, f + ("Conv_1",), t + ".conv2")
+        _bn(plan, f + ("BatchNorm_2",), t + ".bn3")
+    _conv(plan, ("Conv_0",), "head", bias=True)
+    return plan
+
+
+def pspnet_seg_plan(encoder_stages: Sequence[int] = (3, 4, 6, 3),
+                    n_sizes: int = 4) -> List[Entry]:
+    plan: List[Entry] = []
+    _encoder(plan, ("ResNetEncoder_0",), "encoder.", encoder_stages)
+    for i in range(n_sizes):
+        _conv(plan, (f"Conv_{i}",), f"stages.{i}")
+    _conv(plan, (f"Conv_{n_sizes}",), "bottleneck")
+    _bn(plan, ("BatchNorm_0",), "bn")
+    _conv(plan, (f"Conv_{n_sizes + 1}",), "head", bias=True)
+    return plan
+
+
+def segnet_plan() -> List[Entry]:
+    plan: List[Entry] = []
+    for k, widths in enumerate(ENCODER_WIDTHS + DECODER_WIDTHS):
+        part, i = (("encoder", k) if k < len(ENCODER_WIDTHS)
+                   else ("decoder", k - len(ENCODER_WIDTHS)))
+        for j in range(len(widths)):
+            f = (f"_ConvStack_{k}",)
+            _conv(plan, f + (f"Conv_{j}",), f"{part}.{i}.convs.{j}")
+            _bn(plan, f + (f"BatchNorm_{j}",), f"{part}.{i}.bns.{j}")
     _conv(plan, ("Conv_0",), "head", bias=True)
     return plan
 
@@ -116,6 +170,8 @@ def refiner_plan() -> List[Entry]:
 def _convert(arr: np.ndarray, kind: str) -> np.ndarray:
     if kind == "conv":
         return arr.transpose(3, 2, 0, 1)
+    if kind == "convT":
+        return arr[::-1, ::-1].transpose(2, 3, 0, 1)
     if kind == "dense":
         return arr.T
     if kind == "prelu":
@@ -133,11 +189,12 @@ def to_state_dict(variables: Dict[str, Any],
         for p in path:
             node = node[p]
         arr = _convert(np.asarray(node, np.float32), kind)
-        out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+        out[key] = torch.from_numpy(np.array(arr, order="C"))
     return out
 
 
 _INVERSE = {"conv": lambda a: a.transpose(2, 3, 1, 0),
+            "convT": lambda a: a.transpose(2, 3, 0, 1)[::-1, ::-1],
             "dense": lambda a: a.T,
             "prelu": lambda a: a.reshape(())}
 
@@ -160,6 +217,10 @@ def to_variables(state: Dict[str, torch.Tensor],
 
 def unet_state_dict(variables):
     return to_state_dict(variables, unet_plan())
+
+
+def unet_variables(model: torch.nn.Module) -> Dict[str, Any]:
+    return to_variables(model.state_dict(), unet_plan())
 
 
 def posenet_state_dict(variables):

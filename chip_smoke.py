@@ -68,7 +68,18 @@ Phases (any failure raises and the script exits non-zero):
      live loop (`App.run_live_prediction`, blocking and pipelined) and the
      grasp flow (`grasping.get_predictions` through 5 view points, each
      `get_robot2object` against an f64 recomputation, `execute_grasp`)
-     with a FakeDepthCam and a FakeRobot.
+     with a FakeDepthCam and a FakeRobot,
+ 12. segmentation training: `App.train_segmentation` for 2 epochs on a
+     written 5-object 640x480 dataset with `SegConfig` defaults (U-Net
+     ResNet34, batch 4, 480 crops, Adam 1e-4, bf16, 4 Loader threads), its
+     checkpoint read back and serving one `full_prediction`; one f32
+     `train_step` on the card against the same step on the CPU; a
+     background-subtraction-style run (7 channels, 2 classes, SGD with the
+     plateau, the CCA metric) on synthetic batches; LinkNet and PSPNet-seg
+     forward against the CPU; s per epoch, Loader-fed and staged ms per
+     step, Loader samples/s at 0 and 4 workers, the host's ms per sample
+     (decode, jitter, rotate, crop-and-zoom), busy share, top device
+     operations and peak memory (one `segmentation training {...}` line).
 With `--nn-timing ROOT` it runs only phase 8's timing, of the port in the
 checkout at ROOT, and prints it as one JSON line: run it on two checkouts
 back to back on one card to compare them alike. `--train-timing ROOT` does
@@ -1699,14 +1710,15 @@ def sample_split_ms(ds, count: int) -> dict:
     return {k: round(1e3 * v / count, 4) for k, v in spent.items()}
 
 
-def loader_rate(ds, workers: int, samples: int) -> float:
-    """Samples a second the Loader assembles (train mode, batch 8)."""
+def loader_rate(ds, workers: int, samples: int, batch_size: int = 8
+                ) -> float:
+    """Samples a second the Loader assembles (train mode)."""
     from autoposeestimation_tpu_torch.data import loader
 
     t0 = time.perf_counter()
     n = 0
-    for batch in loader.Loader(ds, 8, num_workers=workers):
-        n += len(batch["img"])
+    for _ in loader.Loader(ds, batch_size, num_workers=workers):
+        n += batch_size
         if n >= samples:
             break
     return n / (time.perf_counter() - t0)
@@ -2272,6 +2284,303 @@ def serving_stream_phase(dev) -> None:
     live_and_grasp(dev, model_points, classes)
 
 
+# --- phase 12: segmentation training -----------------------------------------
+
+SEG_DS = "seg5"
+SEG_VIEWS = 8            # 7 training views an object: 35 samples, 8 steps of 4
+SEG_EPOCHS = 2
+SEG_CLASSES = 6          # 5 objects and the background
+
+
+def seg_sample_split_ms(ds, count: int) -> dict:
+    """ms per training sample of the segmentation dataset's steps, one
+    thread: decode, colour jitter, rotation, crop-and-zoom."""
+    from autoposeestimation_tpu_torch.data import augment as aug
+
+    spent = dict.fromkeys(("decode", "jitter", "rotate", "crop_and_zoom"),
+                          0.0)
+    for i in range(count):
+        t0 = time.perf_counter()
+        img, label = ds.load(i)
+        t1 = time.perf_counter()
+        img = aug.color_jitter(img, rng=ds.rng)
+        t2 = time.perf_counter()
+        img, label = aug.rotate_joint(ds.rng.uniform(-180.0, 180.0), img,
+                                      label)
+        t3 = time.perf_counter()
+        aug.CropAndZoom(ds.output_size, rng=ds.rng)(img, label)
+        t4 = time.perf_counter()
+        for key, a, b in (("decode", t0, t1), ("jitter", t1, t2),
+                          ("rotate", t2, t3), ("crop_and_zoom", t3, t4)):
+            spent[key] += b - a
+    return {k: round(1e3 * v / count, 4) for k, v in spent.items()}
+
+
+def seg_fed_and_staged_ms(net, optimizer, batches_fn, dev):
+    """(ms per train_step fed by the Loader through `device_prefetch`, as
+    `segmentation_training` feeds it; ms per step over the same batches
+    staged on the card; the steps; the staged batches)."""
+    from autoposeestimation_tpu_torch.data import loader
+    from autoposeestimation_tpu_torch.train import segmentation as seg
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged = []
+    for batch in loader.device_prefetch(batches_fn(), dev):
+        staged.append(seg.to_device(batch, dev))
+        seg.train_step(net, optimizer, staged[-1], SEG_CLASSES)
+    torch.cuda.synchronize()
+    fed = 1e3 * (time.perf_counter() - t0) / len(staged)
+    again = iter(staged)
+    staged_ms = timed_steps(lambda: seg.train_step(
+        net, optimizer, next(again), SEG_CLASSES), len(staged))
+    return fed, staged_ms, len(staged), staged
+
+
+def flat_pairs(a: dict, b: dict, prefix: str = ""):
+    """(path, a leaf, b leaf) over two nested dicts of one layout."""
+    for key, node in a.items():
+        if isinstance(node, dict):
+            yield from flat_pairs(node, b[key], f"{prefix}{key}/")
+        else:
+            yield prefix + key, np.asarray(node), np.asarray(b[key])
+
+
+def seg_card_vs_cpu(dev, variables, batch) -> dict:
+    """One f32 train_step (TF32 off) from the same weights on the card and
+    on the CPU: the loss within 2e-4, the confusion equal but for pixels
+    whose two best logits are within 1e-4, every weight within 2 lr and
+    all but 1 in 10^3 of the weights within 2e-4 (Adam's first step is
+    about lr * sign(gradient), so a gradient at rounding level can move a
+    weight either way), the running statistics within 1e-4 relative."""
+    import copy
+
+    from autoposeestimation_tpu_torch import weights
+    from autoposeestimation_tpu_torch.models.unet import UNet
+    from autoposeestimation_tpu_torch.train import segmentation as seg
+
+    cfg = seg.SegConfig(classes=SEG_CLASSES)
+    out = {}
+    near_ties = 0
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        net = UNet(SEG_CLASSES, dtype=torch.float32)
+        net.load_state_dict(weights.unet_state_dict(variables))
+        net.to(d)
+        optimizer = seg.make_optimizer(cfg, net.parameters())
+        on = seg.to_device(batch, d)
+        if name == "card":
+            with torch.no_grad():
+                top2 = copy.deepcopy(net).train()(on["image"]).topk(
+                    2, dim=1).values
+            near_ties = int((top2[:, 0] - top2[:, 1] < 1e-4).sum())
+        m = seg.train_step(net, optimizer, on, SEG_CLASSES)
+        out[name] = (float(m["loss"]), m["conf"].cpu().numpy(),
+                     weights.unet_variables(net))
+    (lc, cc, vc), (lp, cp, vp) = out["card"], out["cpu"]
+    moved = int(np.abs(cc - cp).sum()) // 2
+    check(abs(lc - lp) <= 2e-4, f"segmentation step card vs CPU: loss {lc} "
+          f"vs {lp}")
+    check(moved <= near_ties, f"segmentation step card vs CPU: {moved} "
+          f"pixels moved, {near_ties} near ties")
+    stats = max(float((np.abs(a - b) / np.maximum(np.abs(b), 1.0)).max())
+                for _, a, b in flat_pairs(vc["batch_stats"],
+                                          vp["batch_stats"]))
+    check(stats <= 1e-4, f"segmentation step card vs CPU: running "
+          f"statistics {stats} relative")
+    worst, beyond, total = 0.0, 0, 0
+    for path, a, b in flat_pairs(vc["params"], vp["params"]):
+        d = np.abs(a - b)
+        check(d.max() <= 2 * cfg.lr + 1e-6, f"segmentation step card vs "
+              f"CPU: {path} max {d.max()}")
+        worst = max(worst, float(d.max()))
+        beyond += int((d > 2e-4).sum())
+        total += d.size
+    check(beyond <= 1e-3 * total, f"segmentation step card vs CPU: "
+          f"{beyond} of {total} weights beyond 2e-4")
+    return {"loss_card": lc, "loss_cpu": lp, "pixels_moved": moved,
+            "near_ties": near_ties, "weight_max_diff": worst,
+            "weights_beyond_2e-4": beyond, "weights": total,
+            "stats_max_rel_diff": stats}
+
+
+def seg_blob_batches(rng, count: int, channels: int, hw=(480, 640)):
+    """Synthetic batches of 4: normal images with elliptic blob labels,
+    the blobs brighter in channel 0."""
+    out = []
+    yy, xx = np.mgrid[:hw[0], :hw[1]]
+    for _ in range(count):
+        label = np.zeros((4,) + hw, np.int32)
+        for b in range(4):
+            cy, cx = rng.uniform(0, hw[0]), rng.uniform(0, hw[1])
+            ry, rx = rng.uniform(20, 120, 2)
+            label[b, ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1] = 1
+        image = rng.normal(size=(4,) + hw + (channels,)).astype(np.float32)
+        image[..., 0] += 2.0 * label
+        out.append({"image": image, "label": label})
+    return out
+
+
+def seg_variants_card_vs_cpu(dev) -> dict:
+    """LinkNet and PSPNet-seg forward (eval mode, f32, seeded weights) on
+    the card and the CPU at 480x640: logits within 2e-4."""
+    from autoposeestimation_tpu_torch.models import seg_variants
+    from autoposeestimation_tpu_torch.models.common import init_like_flax
+
+    x = torch.from_numpy(np.random.default_rng(12).normal(
+        size=(1, 3, 480, 640)).astype(np.float32))
+    errs = {}
+    for name, cls in (("LinkNet", seg_variants.LinkNet),
+                      ("PSPNetSeg", seg_variants.PSPNetSeg)):
+        net = cls(SEG_CLASSES)
+        init_like_flax(net, torch.Generator().manual_seed(4))
+        net.eval()
+        with torch.no_grad():
+            want = net(x)
+            got = net.to(dev)(x.to(dev)).cpu()
+        errs[name] = float((got - want).abs().max())
+        check(got.shape == (1, SEG_CLASSES, 480, 640)
+              and errs[name] <= 2e-4, f"{name} card vs CPU: {errs[name]}")
+    return errs
+
+
+def segmentation_training_phase(dev) -> None:
+    """Phase 12: `App.train_segmentation` at full width on a written 640x480
+    dataset (SegConfig defaults: Unet-resnet34, batch 4, 480 crops, Adam
+    1e-4, bf16, 4 Loader threads), its checkpoint serving a frame; one f32
+    step against the CPU; a background-subtraction-style run; LinkNet and
+    PSPNet-seg against the CPU; where the time goes."""
+    import tempfile
+
+    from autoposeestimation_tpu_torch import weights
+    from autoposeestimation_tpu_torch.data import loader, segmentation_dataset
+    from autoposeestimation_tpu_torch.main import App
+    from autoposeestimation_tpu_torch.models.common import init_like_flax
+    from autoposeestimation_tpu_torch.models.densefusion import (
+        PoseNet, PoseRefineNet)
+    from autoposeestimation_tpu_torch.models.unet import UNet
+    from autoposeestimation_tpu_torch.pipeline import predict
+    from autoposeestimation_tpu_torch.train import checkpoints
+    from autoposeestimation_tpu_torch.train import segmentation as seg
+    from autoposeestimation_tpu_torch.utils import synthetic
+
+    with tempfile.TemporaryDirectory() as root:
+        cfg = synthetic.SynthConfig(img_h=480, img_w=640, fx=600.0, fy=600.0,
+                                    n_viewpoints=SEG_VIEWS, noise=1.0)
+        t0 = time.perf_counter()
+        manifest = synthetic.make_dataset(root, objects=pose_objects(),
+                                          cfg=cfg, dataset_name=SEG_DS)
+        print(f"segmentation dataset: 5 objects x {SEG_VIEWS} views at "
+              f"640x480 written in {time.perf_counter() - t0:.2f} s")
+
+        # the main path
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = App(root).train_segmentation(SEG_DS, epochs=SEG_EPOCHS,
+                                           device=dev)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        curves = res["log"]["curves"]
+        for key in ("train_loss", "valid_loss", "train_iou", "valid_iou"):
+            check(len(curves[key]) == SEG_EPOCHS
+                  and all(np.isfinite(curves[key])),
+                  f"segmentation logs.json {key}: {curves[key]}")
+        out_dir = os.path.join(root, "segmentation", "trained_models", SEG_DS)
+        ckpt = checkpoints.load_checkpoint(os.path.join(
+            out_dir, "Unet_resnet34.ckpt"))
+        check(ckpt["meta"]["config"]["classes"] == SEG_CLASSES
+              and ckpt["meta"]["valid_iou"] == res["best_iou"],
+              f"segmentation checkpoint meta {ckpt['meta']}")
+        UNet(SEG_CLASSES).load_state_dict(
+            weights.unet_state_dict(ckpt["variables"]))
+
+        # the trained checkpoint serves a frame (random pose weights)
+        gen = torch.Generator().manual_seed(0)
+        pose_dir = os.path.join(root, "DenseFusion", "trained_models", SEG_DS)
+        for name, net, to_vars in (
+                ("pose_model", PoseNet(5), weights.posenet_variables),
+                ("pose_refine_model", PoseRefineNet(5),
+                 weights.refiner_variables)):
+            init_like_flax(net, gen)
+            checkpoints.save_checkpoint(os.path.join(pose_dir, name),
+                                        to_vars(net))
+        models = predict.get_prediction_models(root, SEG_DS, device=dev)
+        color, depth, _ = synthetic.render(cfg, manifest["cams"][0],
+                                           manifest["objects"][:1])
+        served = predict.full_prediction(
+            color, np.round(depth).astype(np.uint16),
+            {"intr": manifest["intr"], "depth_scale": 0.001}, models,
+            generator=torch.Generator(device=dev).manual_seed(1))
+        for p in served["predictions"].values():
+            check(np.isfinite(np.asarray(p["position"])).all(),
+                  "served prediction not finite")
+        print(f"segmentation serving: the trained checkpoint served one "
+              f"frame, classes found {sorted(served['predictions'])}")
+
+        # one f32 step, card against CPU
+        train_ds = segmentation_dataset.SegmentationDataset(
+            root, SEG_DS, mode="train", label_mode="pred")
+        batch = next(iter(loader.Loader(train_ds, 2, num_workers=0)))
+        step_check = seg_card_vs_cpu(dev, ckpt["variables"], batch)
+        print("segmentation step card vs CPU " + json.dumps(step_check))
+
+        # the background-subtraction configuration on synthetic batches
+        rng = np.random.default_rng(7)
+        bs_train = seg_blob_batches(rng, 3, 7)
+        bs_valid = seg_blob_batches(rng, 1, 7)
+        bs_cfg = seg.SegConfig(classes=2, in_channels=7, epochs=2, lr=1e-2,
+                               optimizer="sgd")
+        bs = seg.segmentation_training(
+            lambda: iter(bs_train), lambda: iter(bs_valid), bs_cfg,
+            os.path.join(root, "background_subtraction", "trained_models"),
+            plateau=seg.ReduceLROnPlateau(bs_cfg.lr, patience=0),
+            with_cca_metric=True, device=dev)
+        bs_curves = bs["log"]["curves"]
+        check(all(np.isfinite(bs_curves[k]).all() for k in
+                  ("train_loss", "valid_iou", "valid_iou_cca")),
+              f"background-subtraction run curves {bs_curves}")
+        variants = seg_variants_card_vs_cpu(dev)
+
+        # where the time goes
+        split = seg_sample_split_ms(train_ds, 8)
+        rates = {w: loader_rate(train_ds, w, 16, batch_size=4)
+                 for w in (0, 4)}
+        net = res["model"]
+        optimizer = seg.make_optimizer(seg.SegConfig(classes=SEG_CLASSES),
+                                       net.parameters())
+        batches = lambda: loader.Loader(train_ds, 4)    # noqa: E731
+        fed, staged_ms, n, staged = seg_fed_and_staged_ms(net, optimizer,
+                                                          batches, dev)
+        again = iter(staged)
+        seen = profile(lambda: [seg.train_step(net, optimizer, next(again),
+                                               SEG_CLASSES)
+                                for _ in range(n)],
+                       "segmentation step, staged", n, staged_ms)
+        device_ms = seen[0] if seen else float("nan")
+        print("segmentation training " + json.dumps({
+            "card": nvidia_smi("name,power.limit"),
+            "train_samples": len(train_ds), "epochs": SEG_EPOCHS,
+            "run_s": round(run_s, 3),
+            "epoch_s": [round(v, 3) for v in curves["epoch_seconds"]],
+            "step_ms": {"loader_fed": round(fed, 4),
+                        "staged": round(staged_ms, 4), "steps": n,
+                        "device": round(device_ms, 4)},
+            "busy_share": {"loader_fed": round(device_ms / fed, 4),
+                           "staged": round(device_ms / staged_ms, 4)},
+            "sample_ms": split,
+            "loader_samples_per_s": {str(w): round(r, 3)
+                                     for w, r in rates.items()},
+            "peak_memory_gib": round(peak_gib, 3),
+            "curves": {k: [round(v, 6) for v in curves[k]]
+                       for k in ("train_loss", "valid_loss", "train_iou",
+                                 "valid_iou")},
+            "background_subtraction": {
+                k: [round(v, 6) for v in bs_curves[k]]
+                for k in ("train_loss", "valid_iou", "valid_iou_cca",
+                          "lr")},
+            "variants_card_vs_cpu_max_abs": variants}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2314,6 +2623,7 @@ def main() -> int:
     # there join those of phases 5 and 7
     ds_train, ds_fwd = dataset_training_phase(dev)
     serving_stream_phase(dev)
+    segmentation_training_phase(dev)
     kernel["launches_by_phase"] = {"evaluation": kernel["launches"],
                                    "dataset_training": ds_fwd}
     kernel["launches"] += ds_fwd

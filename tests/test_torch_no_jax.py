@@ -55,8 +55,48 @@ def test_port_imports_without_pil_or_matplotlib():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     count, loaded = res.stdout.split(" ", 1)
-    assert int(count) >= 37
+    assert int(count) >= 42
     assert loaded.strip() == "[]"
+
+
+SEG_PROBE = """
+import sys
+for blocked in ("jax", "jaxlib", "flax", "optax", "autoposeestimation_tpu",
+                "PIL", "matplotlib", "pyrealsense2"):
+    sys.modules[blocked] = None
+import torch
+from autoposeestimation_tpu_torch.data import segmentation_dataset
+from autoposeestimation_tpu_torch.models import seg_variants, segnet
+from autoposeestimation_tpu_torch.train import segmentation as seg
+from autoposeestimation_tpu_torch.train import vanilla_segnet
+assert not torch.cuda.is_available()
+raised = []
+for call in (
+        lambda: seg.segmentation_training(lambda: iter(()), lambda: iter(()),
+                                          seg.SegConfig(epochs=0), sys.argv[1]),
+        lambda: vanilla_segnet.train_vanilla_segnet(
+            lambda: iter(()), lambda: iter(()), 2, n_epochs=1,
+            log_dir=sys.argv[1], model_save_path=sys.argv[1])):
+    try:
+        call()
+    except RuntimeError as exc:
+        raised.append("device='cpu'" in str(exc))
+print(raised)
+"""
+
+
+def test_segmentation_slice_without_jax_pil_or_a_card(tmp_path):
+    """The segmentation training modules import with JAX, the JAX package,
+    Pillow, matplotlib and the RealSense SDK blocked, and their entry
+    points default to cuda: without a card they raise, naming
+    device='cpu'."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", SEG_PROBE, str(tmp_path)],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=300, env=dict(os.environ,
+                                               CUDA_VISIBLE_DEVICES=""))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[True, True]"
 
 
 @pytest.mark.cuda

@@ -3,8 +3,8 @@ dataset the JAX `make_dataset` wrote (PIL-written PNGs, 160x128, depth
 noise, one symmetric and one asymmetric object, an extra-sample list):
 every key of every item equal, exactly, in test mode and in train mode
 from the same seed (colour jitter and the RGB/L/I;16 rotations included),
-with viewpoint subsampling, extra samples, `pose_source="meta_fields"` and
-`return_raw`; Loader batches equal at 0 and 4 workers with `drop_last`
+with viewpoint subsampling, extra samples, `pose_source="meta_fields"`,
+`return_raw` and `crop_and_zoom`; Loader batches equal at 0 and 4 workers with `drop_last`
 both ways."""
 import os
 
@@ -104,9 +104,25 @@ def test_viewpoints_extra_meta_fields_raw(root):
         assert_items_equal(pt[i], jt[i], f"test raw item {i}")
 
 
-def test_crop_and_zoom_waits_for_its_resize(root):
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        pose_dataset.PoseDataset(root, DS, crop_and_zoom=True)
+@pytest.mark.parametrize("kw", [
+    dict(crop=64, num_pt=200),
+    dict(crop=96, return_raw=True, add_noise=False),
+    dict(crop=160, rot_degrees=30.0, return_raw=True, label_mode="gen"),
+], ids=["crop64", "crop96-raw-no-noise", "crop160-upscale-raw"])
+def test_crop_and_zoom_waits_for_its_resize(root, kw):
+    """The `crop_and_zoom` branch, which waited for `CropAndZoom`'s resize
+    until the segmentation slice brought it: the crop, the bicubic image
+    and nearest label and depth resizes and the intrinsics in the crop
+    frame equal the JAX dataset's, key by key, in train mode; test mode
+    ignores the option."""
+    jds, pds = both(root, mode="train", seed=7, crop_and_zoom=True, **kw)
+    for i in range(len(jds)):
+        assert_items_equal(pds[i], jds[i], f"train item {i}")
+    assert jds.rng.getstate() == pds.rng.getstate()
+    if kw.get("return_raw"):
+        assert pds[0]["raw_img"].shape[:2] == (kw["crop"], kw["crop"])
+    jt, pt = both(root, mode="test", crop_and_zoom=True, num_pt=300)
+    assert_items_equal(pt[0], jt[0], "test item 0")
 
 
 @pytest.mark.parametrize("workers", [0, 4])
