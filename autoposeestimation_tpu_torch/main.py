@@ -1,6 +1,20 @@
 """The application entry points (port of the part of
-`autoposeestimation_tpu/main.py::App` that segmentation and pose training,
-live prediction and grasping need).
+`autoposeestimation_tpu/main.py::App` that offline labeling, segmentation
+and pose training, live prediction and grasping need).
+
+    app = App(root)
+    app.create_labels(["mug"], mode="gen")                         # cuda
+    app.create_dataset(["mug"], "segmentation", "synth", mode="gen")
+    app.train_segmentation("synth")
+    app.create_pose_data("synth", global_regression=False)
+
+label the recorded scans under `<root>/data_generation/data/<object>/`:
+classical background-subtraction masks ('gen'), or the learned 7-channel
+model's ('pred', `<root>/background_subtraction/trained_models/
+Unet_resnet34.ckpt.npz`), each as `<root>/label_generator/data/<object>/
+<run>/NNNNNN.<mode>.label.png`; write a dataset's train/test lists; and
+re-label with the dataset's trained U-Net (Phase A), reconstruct each
+object (Phase B) and fit its pose labels (Phase C).
 
     from autoposeestimation_tpu_torch.main import App
     App(root).train_segmentation("synth", epochs=500)             # cuda
@@ -40,6 +54,8 @@ import numpy as np
 from . import weights
 from .data import loader, pose_dataset, segmentation_dataset
 from .hardware import hand_eye
+from .labeling import create_labels as cl
+from .labeling import make_dataset
 from .models.unet import UNet
 from .pipeline import grasping, predict, tui
 from .train import checkpoints
@@ -74,6 +90,12 @@ class App:
     reference_point: np.ndarray = field(
         default_factory=lambda: REFERENCE_POINT.copy())
 
+    def _select_objects(self, multi: bool = True):
+        return tui.get_selection("objects", io.list_objects(self.root),
+                                 multi=multi, add_all=True,
+                                 input_fn=self.input_fn,
+                                 print_fn=self.print_fn)
+
     def _select_dataset(self, kind: str = "segmentation"):
         base = os.path.join(self.root, "label_generator", "data_sets", kind)
         names = sorted(os.listdir(base)) if os.path.isdir(base) else []
@@ -100,6 +122,66 @@ class App:
                 self.root, "segmentation", "trained_models", ds_name,
                 "Unet_resnet34.ckpt"))["variables"]))
         return model.eval().to(resolve_device(device))
+
+    def _load_bs_model(self, device=None) -> UNet:
+        """The learned background subtraction U-Net (7 channels, 2 classes,
+        f32, eval mode) of `<root>/background_subtraction/trained_models/
+        Unet_resnet34.ckpt.npz`, on `device` (cuda unless given)."""
+        model = UNet(2, in_ch=7)
+        model.load_state_dict(weights.unet_state_dict(
+            checkpoints.load_checkpoint(os.path.join(
+                self.root, "background_subtraction", "trained_models",
+                "Unet_resnet34.ckpt"))["variables"]))
+        return model.eval().to(resolve_device(device))
+
+    def create_labels(self, objects=None, mode: str = "gen",
+                      device=None) -> int:
+        """Label every foreground sample of the objects (chosen in the TUI
+        unless given) on `device` (cuda unless given): 'gen' the classical
+        background subtraction, otherwise the learned model ('pred').
+        Returns the number of labels written."""
+        objects = objects or self._select_objects()
+        model = None if mode == "gen" else self._load_bs_model(device)
+        total = 0
+        for obj in objects:
+            t0 = time.time()
+            if model is None:
+                total += cl.create_labels(
+                    obj, self.root, reference_point=self.reference_point,
+                    device=device)
+            else:
+                total += cl.create_mask_predictions(
+                    obj, self.root, model,
+                    reference_point=self.reference_point)
+            self.print_fn(f"{obj}: {time.time() - t0:.1f}s")
+        return total
+
+    def create_pose_data(self, ds_name: Optional[str] = None,
+                         global_regression: bool = False,
+                         device=None) -> Dict:
+        """Phases A-C of the offline labeling for the classes of a
+        segmentation dataset, with its trained U-Net, on `device` (cuda
+        unless given): new_pred labels, the reconstructed clouds and the
+        pose labels. Returns {"stats", "times"}."""
+        ds_name = ds_name or self._select_dataset("segmentation")
+        classes = io.read_lines(os.path.join(
+            io.dataset_dir(self.root, "segmentation", ds_name),
+            "classes.txt"))
+        model = self._load_seg_model(ds_name, len(classes) + 1, device)
+        return cl.create_pose_data(
+            self.root, classes, ds_name, model, self.reference_point,
+            global_regression=global_regression, device=device)
+
+    def create_dataset(self, objects=None, kind: str = "segmentation",
+                       save_name: Optional[str] = None, mode: str = "pred",
+                       p_test: float = 0.2) -> Dict:
+        """Write a segmentation or pose_estimation dataset's lists from the
+        objects' `mode` labels (pose datasets also list the extra run)."""
+        objects = objects or self._select_objects()
+        save_name = save_name or self.input_fn("dataset name> ").strip()
+        return make_dataset.make_train_and_test_dataset(
+            self.root, objects, kind, save_name, p_test=p_test, mode=mode,
+            use_extra_data=(kind == "pose_estimation"))
 
     def train_segmentation(self, ds_name: Optional[str] = None,
                            epochs: Optional[int] = None, device=None,

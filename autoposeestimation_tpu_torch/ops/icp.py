@@ -5,12 +5,17 @@ nearest-neighbour op (on CUDA the kernel `csrc/nn.cu`), rejection beyond
 Gauss-Newton step (point-to-plane), and Open3D's convergence criteria.
 
 The JAX package's `lax.while_loop` is a Python loop here that reads the
-`converged` flag from the device once per iteration; the 3x3 SVD and
-determinant and the 6x6 solve run on the clouds' device. As in
-`ops/pointcloud.py`, the sums, the updates and the transform of the points
-are computed in f64 and the moved points and the transform rounded to f32
-(the JAX package's types), so that the CPU and CUDA take the same steps;
-the nearest-neighbour search is the same function on both.
+`converged` flag from the device once per iteration; the 6x6 solve runs on
+the clouds' device. As in `ops/pointcloud.py`, the sums, the updates and
+the transform of the points are computed in f64 and the moved points and
+the transform rounded to f32 (the JAX package's types), so that the CPU
+and CUDA take the same steps; the nearest-neighbour search is the same
+function on both. The point-to-point step's weighted sums and 3x3 SVD run
+on the host in numpy f64 for every device (`pointcloud.kabsch_np`): where
+few inliers match one or two target points, as after a poor global
+registration, the cross-covariance is zero or of rank 1, its rotation is
+not unique, and LAPACK and cuSOLVER pick different ones (an H100's step
+differed from the CPU's by 40 mm there).
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..utils import transforms as T
+from . import global_registration as greg
 from . import knn as knn_ops
 from . import pointcloud as pc
 
@@ -35,20 +41,10 @@ _F64 = torch.float64
 
 def _kabsch(src: torch.Tensor, tgt: torch.Tensor,
             weights: torch.Tensor) -> torch.Tensor:
-    """Weighted closed-form rigid alignment src -> tgt (Umeyama without
-    scale), as a 4x4 f64 transform."""
-    src, tgt, weights = (x.to(_F64) for x in (src, tgt, weights))
-    w = weights[:, None]
-    wsum = torch.clamp(torch.sum(weights), min=1e-9)
-    mu_s = torch.sum(src * w, 0) / wsum
-    mu_t = torch.sum(tgt * w, 0) / wsum
-    h = ((src - mu_s) * w).T @ (tgt - mu_t)
-    u, _, vt = torch.linalg.svd(h)
-    d = torch.sign(torch.linalg.det(vt.T @ u.T))
-    diag = torch.diag(torch.stack([torch.ones_like(d), torch.ones_like(d),
-                                   d]))
-    r = vt.T @ (diag @ u.T)
-    return T.make_tf(r, mu_t - r @ mu_s)
+    """`pointcloud.kabsch_np` of device tensors: the sums and the SVD run on
+    the host, as a 4x4 f64 transform on the points' device."""
+    args = (x.detach().cpu().numpy() for x in (src, tgt, weights))
+    return torch.from_numpy(pc.kabsch_np(*args)).to(src.device)
 
 
 def _point2plane_step(src: torch.Tensor, tgt: torch.Tensor,
@@ -129,17 +125,18 @@ def icp_regression(target: torch.Tensor, target_valid: torch.Tensor,
                    voxel_size: float = 5.0, threshold: float = 100.0,
                    icp_point2point: bool = True, icp_point2plane: bool = True,
                    global_regression: bool = False):
-    """Voxel-downsample both clouds, then point-to-point ICP followed by
+    """Voxel-downsample both clouds, optionally take the FPFH + RANSAC
+    global registration of the downsampled clouds as the initial transform
+    (`ops/global_registration.py`), then point-to-point ICP followed by
     point-to-plane refinement, registering source onto target. Returns
     (downsampled target, tvalid, downsampled source, svalid, tf), tf
     moving the source into the target frame."""
-    if global_regression:
-        raise NotImplementedError(
-            "global registration (FPFH + RANSAC) is not ported yet: "
-            "ROADMAP.md Queue 1")
     tgt, tvalid = pc.voxel_downsample(target, target_valid, voxel_size)
     src, svalid = pc.voxel_downsample(source, source_valid, voxel_size)
     tf = torch.eye(4, dtype=torch.float32, device=src.device)
+    if global_regression:
+        tf = greg.global_registration(src, svalid, tgt, tvalid,
+                                      voxel_size).transformation
     for on, estimation in ((icp_point2point, "point_to_point"),
                            (icp_point2plane, "point_to_plane")):
         if on:

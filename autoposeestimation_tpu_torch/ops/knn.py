@@ -37,6 +37,8 @@ import torch
 from . import kernel_build
 
 KERNEL = "nn"
+# Candidates `knn_k` takes beyond k, to order exact ties by index.
+_TIE_MARGIN = 16
 # Bound on the plain version's (chunk, M) f64 temporaries.
 _CHUNK_ELEMS = 1 << 22
 
@@ -224,13 +226,21 @@ def knn_k(query: torch.Tensor, ref: torch.Tensor, k: int,
           ref_valid: Optional[torch.Tensor] = None, chunk: int = 1024
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest references per query, nearest first: (idx (N, k) int32,
-    dist (N, k) f32). Equal distances may come in another order than
-    `lax.top_k`'s."""
+    dist (N, k) f32). Equal distances come lower index first, as
+    `lax.top_k` orders them, on every device: `torch.topk` takes
+    _TIE_MARGIN candidates more, which are then ordered by (distance,
+    index). (Clouds backprojected from a pixel grid hold exact distance
+    ties, and which of them a neighbourhood takes moves FPFH's bins.)"""
     n = query.shape[0]
     idx = torch.empty((n, k), dtype=torch.int32, device=query.device)
     dist = torch.empty((n, k), dtype=torch.float32, device=query.device)
     for c0, d2 in _masked_dist2(query, ref, ref_valid, chunk):
-        vals, ind = torch.topk(d2, k, dim=1, largest=False, sorted=True)
-        idx[c0:c0 + chunk] = ind.to(torch.int32)
-        dist[c0:c0 + chunk] = torch.sqrt(vals)
+        take = min(k + _TIE_MARGIN, d2.shape[1])
+        vals, ind = torch.topk(d2, take, dim=1, largest=False, sorted=True)
+        ind, order = torch.sort(ind, dim=1)
+        vals, order = torch.sort(torch.gather(vals, 1, order), dim=1,
+                                 stable=True)
+        ind = torch.gather(ind, 1, order)
+        idx[c0:c0 + chunk] = ind[:, :k].to(torch.int32)
+        dist[c0:c0 + chunk] = torch.sqrt(vals[:, :k])
     return idx, dist

@@ -156,6 +156,31 @@ def estimate_normals(points: torch.Tensor, valid: torch.Tensor,
     return vecs[:, :, 0].to(torch.float32)
 
 
+def kabsch_np(src: np.ndarray, tgt: np.ndarray,
+              weights: np.ndarray) -> np.ndarray:
+    """Weighted closed-form rigid alignment src -> tgt (Umeyama without
+    scale) of (..., N, 3) points in numpy f64: (..., 4, 4) transforms."""
+    s, t = src.astype(np.float64), tgt.astype(np.float64)
+    w = weights.astype(np.float64)[..., None]
+    wsum = np.maximum(w.sum(-2), 1e-9)
+    mu_s = (s * w).sum(-2) / wsum
+    mu_t = (t * w).sum(-2) / wsum
+    # einsum, not BLAS: one thread, the same order of sums on every call
+    h = np.einsum("...ni,...nj->...ij", (s - mu_s[..., None, :]) * w,
+                  t - mu_t[..., None, :])
+    u, _, vt = np.linalg.svd(h)
+    v, ut = np.swapaxes(vt, -1, -2), np.swapaxes(u, -1, -2)
+    diag = np.ones(h.shape[:-1])
+    diag[..., 2] = np.sign(np.linalg.det(np.einsum("...ij,...jk->...ik", v,
+                                                   ut)))
+    r = np.einsum("...ij,...jk->...ik", v, diag[..., :, None] * ut)
+    tf = np.zeros(h.shape[:-2] + (4, 4))
+    tf[..., :3, :3] = r
+    tf[..., :3, 3] = mu_t - np.einsum("...ij,...j->...i", r, mu_s)
+    tf[..., 3, 3] = 1.0
+    return tf
+
+
 def intersect_line_line(p1, d1, p2, d2):
     """Closest points between lines (point, direction), (3,) or batched
     (..., 3): (point on line 1, point on line 2)."""

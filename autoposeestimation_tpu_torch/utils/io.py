@@ -258,6 +258,22 @@ def pc_dir(root: str) -> str:
     return os.path.join(root, "pc_reconstruction", "data")
 
 
+def list_objects(root: str) -> List[str]:
+    """The object directories of the acquisition data, sorted."""
+    d = data_dir(root)
+    if not os.path.isdir(d):
+        return []
+    return sorted(o for o in os.listdir(d) if os.path.isdir(os.path.join(d, o)))
+
+
+def list_runs(root: str, obj: str) -> List[str]:
+    """The run directories (background, foreground, ...) of an object."""
+    d = os.path.join(data_dir(root), obj)
+    if not os.path.isdir(d):
+        return []
+    return sorted(r for r in os.listdir(d) if os.path.isdir(os.path.join(d, r)))
+
+
 def list_sample_ids(run_dir: str) -> List[str]:
     """Sample stems (e.g. '000012') of an acquisition run directory."""
     return sorted({fn[: -len(".color.png")] for fn in os.listdir(run_dir)

@@ -79,7 +79,22 @@ Phases (any failure raises and the script exits non-zero):
      forward against the CPU; s per epoch, Loader-fed and staged ms per
      step, Loader samples/s at 0 and 4 workers, the host's ms per sample
      (decode, jitter, rotate, crop-and-zoom), busy share, top device
-     operations and peak memory (one `segmentation training {...}` line).
+     operations and peak memory (one `segmentation training {...}` line),
+ 13. offline labeling: on a written 5-object 640x480 dataset (20 views a
+     run; obj1 also turned by 180 degrees and an `extra` run in that pose),
+     `App.create_labels` in 'gen' mode (every label's IoU against the
+     rendered mask above 0.6; 5 labels against the CPU's, equal but for
+     pixels at the threshold or in a component whose floored mean score is
+     within 1e-4 of an integer), the background-subtraction U-Net trained
+     for an epoch (`BSDataset`, 7 channels, 2 classes, SGD, 4 Loader
+     threads) and its 'pred' labels (3 against the CPU's, equal but for
+     near-tie pixels), `App.create_dataset` and 6 epochs of
+     `App.train_segmentation` (Adam 1e-3), then `App.create_pose_data`
+     without and with global registration (per-phase times, nn calls per
+     object, RANSAC ms and fitness, the turned run's rotation error), and
+     the turned object's Phases B and C with global registration at
+     320x240 on the card and the CPU: the same drawn hypotheses, clouds
+     and labels within 1e-3 (one `offline labeling {...}` line).
 With `--nn-timing ROOT` it runs only phase 8's timing, of the port in the
 checkout at ROOT, and prints it as one JSON line: run it on two checkouts
 back to back on one card to compare them alike. `--train-timing ROOT` does
@@ -1550,16 +1565,18 @@ def reconstruction_phase(dev):
         merge()
         merge_ms = timed_steps(merge, 3)
         iters = sum(it for _, it in icps)
-        h = torch.randn(3, 3, dtype=torch.float64, device=dev)
-        svd_ms = timed_steps(lambda: torch.sign(torch.linalg.det(
-            torch.linalg.svd(h)[0])).item(), 50)
+        pts = torch.randn(len(views[0]), 3, device=dev)
+        w = torch.ones(len(views[0]), dtype=torch.float64, device=dev)
+        svd_ms = timed_steps(lambda: icp._kabsch(pts, pts, w).sum().item(),
+                             50)
         a6 = torch.eye(6, dtype=torch.float64, device=dev) * 2
         solve_ms = timed_steps(lambda: torch.linalg.solve(
             a6, a6[0]).sum().item(), 50)
         profile(merge, "one ICP merge (point-to-point)", 1, merge_ms)
         print(f"ICP merge of two {len(views[0])}/{len(views[1])}-point views: "
-              f"{merge_ms:.4f} ms, {iters} iterations; 3x3 SVD + det + read "
-              f"on the card {svd_ms:.4f} ms each, "
+              f"{merge_ms:.4f} ms, {iters} iterations; a Kabsch step (the "
+              f"points to the host, sums and SVD there) {svd_ms:.4f} ms "
+              f"each, "
               f"{100 * svd_ms * iters / merge_ms:.1f}% of the merge; the "
               f"point-to-plane step's 6x6 solve + read {solve_ms:.4f} ms")
 
@@ -2581,6 +2598,539 @@ def segmentation_training_phase(dev) -> None:
             "variants_card_vs_cpu_max_abs": variants}))
 
 
+# --- phase 13: offline labeling ----------------------------------------------------
+
+LABEL_DS = "label5"
+LABEL_VIEWS = 20         # a background and a foreground run of 20 views
+EXTRA_VIEWS = 8
+TURNED = "obj1"          # asymmetric: the coloured part shows the turn
+TURNED_RUN = "foreground180"
+BS_LR = 1e-2             # the JAX package's background-subtraction runs
+# Phase A's U-Net: 6 epochs at Adam 1e-3. After one epoch (at 1e-3 or
+# 1e-4) some runs keep a speckle component as every view's mask (IoU 0.0-
+# 0.08 against the rendered masks on an H100); such a run has no surface,
+# and Phase B fails on it in both packages (align_point_clouds of no
+# cloud). After 4 epochs the validation IoU reached 0.46-0.69 and single
+# views still held speckles; after 6 it was 0.90, every run's masks at
+# IoU >= 0.73.
+PHASE_A_EPOCHS = 6
+PHASE_A_LR = 1e-3
+GEN_CPU_SAMPLES = 5
+PRED_CPU_SAMPLES = 3
+TIE = 1e-4               # a score or probability this close may decide
+LABEL_IOU = 0.6          # tests/test_labeling_reconstruction.py:38
+LABEL_ATOL = 1e-3        # mm, phase 9's card-vs-CPU bound
+
+
+def turn_pose(degrees: float = 180.0) -> np.ndarray:
+    """The acquisition `object_pose` of a turn about the vertical axis (an
+    `{"c": degrees}` run): the f32 euler matrix, as acquisition writes it."""
+    from autoposeestimation_tpu_torch.utils import transforms as T
+
+    tf = np.eye(4)
+    tf[:3, :3] = T.euler_to_mat(*(torch.tensor(np.float32(a)) for a in
+                                  np.deg2rad([0.0, 0.0, degrees]))).numpy()
+    return tf
+
+
+def turned_object(obj, object_pose: np.ndarray):
+    """`obj` with its parts turned by the pose's rotation about the vertical
+    axis through its centre: the renderer's spheres moved."""
+    import dataclasses
+
+    rot = object_pose[:3, :3]
+    return dataclasses.replace(obj, parts=tuple(
+        (tuple(rot @ np.asarray(p[0], float)),) + tuple(p[1:])
+        for p in obj.parts))
+
+
+def write_run(root: str, obj, run: str, cfg, object_pose: np.ndarray) -> None:
+    """One acquisition run of `obj` (its spheres as given) from the ring of
+    `cfg`, as `synthetic.make_dataset` writes a foreground run: colour,
+    depth, the meta with the run's `object_pose`, and the rendered mask as
+    the gen, pred and new_pred labels."""
+    from autoposeestimation_tpu_torch.utils import io, synthetic
+
+    intr = io.Intrinsics(width=cfg.img_w, height=cfg.img_h,
+                         ppx=cfg.img_w / 2.0, ppy=cfg.img_h / 2.0,
+                         fx=cfg.fx, fy=cfg.fy)
+    run_dir = os.path.join(io.data_dir(root), obj.name, run)
+    label_dir = os.path.join(io.label_dir(root), obj.name, run)
+    for vp, robot2cam in enumerate(synthetic.ring_cameras(cfg, np.zeros(3))):
+        color, depth, owner = synthetic.render(cfg, robot2cam, [obj])
+        meta = {"joints": [0.0] * 6,
+                "pose": {"x": float(robot2cam[0, 3]),
+                         "y": float(robot2cam[1, 3]),
+                         "z": float(robot2cam[2, 3]),
+                         "a": 0.0, "b": 0.0, "c": 0.0},
+                "object_pose": object_pose, "robot2endEff_tf": robot2cam,
+                "intr": intr, "depth_scale": cfg.depth_scale,
+                "symmetric": obj.symmetric,
+                "hand_eye_calibration": np.eye(4), "view_point_id": vp}
+        stem = f"{vp:06d}"
+        io.write_png(os.path.join(run_dir, stem + ".color.png"), color)
+        io.write_png(os.path.join(run_dir, stem + ".depth.png"),
+                     np.round(depth).astype(np.uint16))
+        io.write_sample_meta(os.path.join(run_dir, stem + ".meta.json"), meta)
+        for mode in ("gen", "pred", "new_pred"):
+            io.write_png(os.path.join(label_dir, f"{stem}.{mode}.label.png"),
+                         (owner == 0).astype(np.uint8) * 255)
+
+
+def write_labeling_dataset(root: str, cfg) -> list:
+    """Phase 10's five objects, a background and a foreground run each
+    (`make_dataset`), and for TURNED a run turned by 180 degrees about the
+    vertical axis and an `extra` run in that pose from a lower ring.
+    Returns the objects."""
+    from autoposeestimation_tpu_torch.utils import synthetic
+
+    objects = pose_objects()
+    synthetic.make_dataset(root, objects=objects, cfg=cfg,
+                           dataset_name="written")
+    pose = turn_pose()
+    turned = turned_object(next(o for o in objects if o.name == TURNED),
+                           pose)
+    write_run(root, turned, TURNED_RUN, cfg, pose)
+    extra = synthetic.SynthConfig(**{**cfg.__dict__,
+                                     "n_viewpoints": EXTRA_VIEWS,
+                                     "ring_height": 300.0})
+    write_run(root, turned, "extra", extra, pose)
+    return objects
+
+
+def label_paths(root: str, mode: str):
+    """(object, run, stem, path) of every `mode` label but the extra run's."""
+    from autoposeestimation_tpu_torch.utils import io
+
+    out = []
+    for obj in io.list_objects(root):
+        for run in io.list_runs(root, obj):
+            d = os.path.join(io.label_dir(root), obj, run)
+            if run in ("background", "extra") or not os.path.isdir(d):
+                continue
+            out += [(obj, run, f.split(".")[0], os.path.join(d, f))
+                    for f in sorted(os.listdir(d))
+                    if f.endswith(f".{mode}.label.png")]
+    return out
+
+
+def iou(a: np.ndarray, b: np.ndarray) -> float:
+    return float((a & b).sum() / max((a | b).sum(), 1))
+
+
+def gen_label_on_cpu(root: str, obj: str, run: str, stem: str) -> dict:
+    """The classical label of one sample computed on the CPU, with what may
+    decide a pixel either way: the scores within TIE of the threshold, and
+    the components of the thresholded, opened and closed score whose
+    floored mean lies within TIE of an integer."""
+    from autoposeestimation_tpu_torch.labeling import create_labels as cl
+    from autoposeestimation_tpu_torch.ops import bg_subtraction as bgs
+    from autoposeestimation_tpu_torch.ops import cca
+    from autoposeestimation_tpu_torch.utils import io
+
+    dd = io.data_dir(root)
+    cpu = torch.device("cpu")
+    tensors, dist = cl._read_pair(os.path.join(dd, obj, "background", stem),
+                                  os.path.join(dd, obj, run, stem), cpu,
+                                  np.zeros(3))
+    label = bgs.create_label_rgbd(*tensors, dist, threshold=30.0, hsv=False,
+                                  both=True, open_k=6, close_k=6,
+                                  remove_one_std=True).numpy()
+    _, score = bgs.label_scores(*tensors, dist, bgs.P_BOTH, False, True)
+    kept = bgs._opened_closed(torch.where(score < 30.0, 0.0, score), 6, 6)
+    mask = kept > 0
+    labels = cca.connected_components(mask)
+    counts, sums = cca.component_stats(labels, mask, kept)
+    mean = sums / torch.clamp(counts, min=1.0)
+    near = (counts > 0) & (torch.abs(mean - torch.round(mean)) < TIE)
+    near_pixels = mask & near[torch.where(mask, labels, labels.numel())]
+    return {"label": label, "score": score.numpy(),
+            "near": (torch.abs(score - 30.0) < TIE).numpy()
+            | near_pixels.numpy()}
+
+
+def flips(got: np.ndarray, want: np.ndarray, allowed: np.ndarray) -> tuple:
+    """(pixels that differ, of them outside `allowed`)."""
+    differ = got != want
+    return int(differ.sum()), int((differ & ~allowed).sum())
+
+
+def labeling_phase(dev) -> int:
+    """Phase 13: the offline labeling path on the card through the App's
+    entry points, on a written 5-object 640x480 dataset with a turned and
+    an extra run: classical labels, the background-subtraction U-Net
+    trained for an epoch and its labels, a segmentation dataset and
+    PHASE_A_EPOCHS epochs of its U-Net, then Phases A-C with and without
+    global registration; each checked against the ground truth or the CPU.
+    Returns the nn kernel's calls in the phase."""
+    import tempfile
+
+    from autoposeestimation_tpu_torch.data import bs_dataset, loader
+    from autoposeestimation_tpu_torch.labeling import create_labels as cl
+    from autoposeestimation_tpu_torch.labeling import pose_labels
+    from autoposeestimation_tpu_torch.main import App
+    from autoposeestimation_tpu_torch.ops import addloss, bg_subtraction
+    from autoposeestimation_tpu_torch.ops import global_registration as greg
+    from autoposeestimation_tpu_torch.ops import knn
+    from autoposeestimation_tpu_torch.reconstruction import (
+        create_pointcloud as rec)
+    from autoposeestimation_tpu_torch.train import segmentation as seg
+    from autoposeestimation_tpu_torch.utils import io, synthetic
+
+    report = {"card": nvidia_smi("name,power.limit")}
+    with tempfile.TemporaryDirectory() as root:
+        cfg = synthetic.SynthConfig(img_h=480, img_w=640, fx=600.0, fy=600.0,
+                                    n_viewpoints=LABEL_VIEWS, noise=1.0)
+        t0 = time.perf_counter()
+        objects = write_labeling_dataset(root, cfg)
+        names = [o.name for o in objects]
+        report["write_s"] = round(time.perf_counter() - t0, 3)
+        # the rendered masks, before the labeling overwrites them
+        truth = {(o, r, s): io.read_label(p) > 0
+                 for o, r, s, p in label_paths(root, "gen")}
+        app = App(root, reference_point=np.zeros(3), print_fn=lambda s: None)
+
+        # the main path: counts from 0 just before, read just after
+        knn.nn_cuda.launches = 0
+        addloss.moments_cuda.launches = 0
+        addloss.moments_train_cuda.launches = 0
+        torch.cuda.synchronize()
+        phase_t0 = time.perf_counter()
+
+        # 1. classical labels
+        t0 = time.perf_counter()
+        n_gen = app.create_labels(names, mode="gen", device=dev)
+        torch.cuda.synchronize()
+        gen_ms = 1e3 * (time.perf_counter() - t0) / n_gen
+        check(n_gen == len(truth), f"gen labels {n_gen} of {len(truth)}")
+        gen_ious = [iou(io.read_label(p) > 0, truth[(o, r, s)])
+                    for o, r, s, p in label_paths(root, "gen")]
+        check(min(gen_ious) > LABEL_IOU, f"gen label IoU against the "
+              f"rendered masks: least {min(gen_ious):.4f}")
+        turned_samples = sum(r == TURNED_RUN for _, r, _ in truth)
+        seen = profile(lambda: cl.create_labels(
+            TURNED, root, reference_point=np.zeros(3), device=dev),
+            "gen labels", LABEL_VIEWS + turned_samples, gen_ms)
+        gen_cpu = []
+        for o, r, s, p in label_paths(root, "gen")[::LABEL_VIEWS][
+                :GEN_CPU_SAMPLES]:
+            cpu = gen_label_on_cpu(root, o, r, s)
+            n, bad = flips(io.read_label(p), cpu["label"], cpu["near"])
+            gen_cpu.append({"sample": f"{o}/{r}/{s}", "differ": n,
+                            "outside_ties": bad})
+            check(bad == 0, f"gen label {o}/{r}/{s}: {bad} of {n} pixels "
+                  f"differ from the CPU's away from a tie")
+        print(f"offline labeling: gen labels done at "
+              f"{time.perf_counter() - phase_t0:.1f} s")
+        report["gen"] = {
+            "samples": n_gen, "ms_per_sample": round(gen_ms, 4),
+            "kernels_per_sample": round(seen[1], 1) if seen else None,
+            "device_ms_per_sample": round(seen[0], 4) if seen else None,
+            "busy_share": round(seen[0] / gen_ms, 4) if seen else None,
+            "iou_min": round(min(gen_ious), 4),
+            "iou_mean": round(float(np.mean(gen_ious)), 4),
+            "card_vs_cpu": gen_cpu}
+        print("offline labeling gen " + json.dumps(report["gen"]))
+
+        # 2. the background-subtraction U-Net: an epoch, then its labels
+        bs_train = bs_dataset.BSDataset(root, mode="train")
+        bs_valid = bs_dataset.BSDataset(root, mode="test")
+        bs_cfg = seg.SegConfig(in_channels=7, classes=2, optimizer="sgd",
+                               epochs=1, lr=BS_LR)
+        t0 = time.perf_counter()
+        bs = seg.segmentation_training(
+            lambda: loader.Loader(bs_train, bs_cfg.batch_size,
+                                  num_workers=4),
+            lambda: loader.Loader(bs_valid, bs_cfg.batch_size, shuffle=False,
+                                  drop_last=False, num_workers=4),
+            bs_cfg, os.path.join(root, "background_subtraction",
+                                 "trained_models"), device=dev)
+        torch.cuda.synchronize()
+        bs_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_pred = app.create_labels(names, mode="pred", device=dev)
+        torch.cuda.synchronize()
+        pred_ms = 1e3 * (time.perf_counter() - t0) / n_pred
+        pred_ious = [iou(io.read_label(p) > 0, truth[(o, r, s)])
+                     for o, r, s, p in label_paths(root, "pred")]
+        cpu_model = app._load_bs_model("cpu")
+        pred_cpu = []
+        for o, r, s, p in label_paths(root, "pred")[::LABEL_VIEWS][
+                :PRED_CPU_SAMPLES]:
+            dd = io.data_dir(root)
+            tensors, dist = cl._read_pair(
+                os.path.join(dd, o, "background", s),
+                os.path.join(dd, o, r, s), torch.device("cpu"), np.zeros(3))
+            x = bg_subtraction.build_bs_input(*tensors, dist)
+            want = cl.bs_mask(cpu_model, x).numpy()
+            with torch.inference_mode():
+                probs = torch.softmax(cpu_model(x.permute(2, 0, 1)[None])[0],
+                                      dim=0)
+            top = torch.topk(probs, 2, dim=0).values
+            n, bad = flips(io.read_label(p) > 0, want,
+                           (top[0] - top[1]).numpy() < TIE)
+            pred_cpu.append({"sample": f"{o}/{r}/{s}", "differ": n,
+                             "outside_ties": bad})
+            check(bad == 0, f"pred label {o}/{r}/{s}: {bad} of {n} pixels "
+                  f"differ from the CPU's away from a near-tie")
+        print(f"offline labeling: pred labels done at "
+              f"{time.perf_counter() - phase_t0:.1f} s")
+        report["pred"] = {
+            "bs_train_samples": len(bs_train), "bs_epoch_s": round(bs_s, 3),
+            "bs_curves": {k: [round(v, 6) for v in bs["log"]["curves"][k]]
+                          for k in ("train_loss", "valid_iou")},
+            "samples": n_pred, "ms_per_sample": round(pred_ms, 4),
+            "iou_min": round(min(pred_ious), 4),
+            "iou_mean": round(float(np.mean(pred_ious)), 4),
+            "card_vs_cpu": pred_cpu}
+        print("offline labeling pred " + json.dumps(report["pred"]))
+
+        # 3. the segmentation dataset from the pred labels, its U-Net for
+        # Phase A
+        t0 = time.perf_counter()
+        lists = app.create_dataset(names, kind="segmentation",
+                                   save_name=LABEL_DS, mode="pred")
+        trained = app.train_segmentation(LABEL_DS, epochs=PHASE_A_EPOCHS,
+                                         device=dev, lr=PHASE_A_LR)
+        torch.cuda.synchronize()
+        print(f"offline labeling: Phase A's U-Net trained at "
+              f"{time.perf_counter() - phase_t0:.1f} s")
+        report["segmentation"] = {
+            "lists": lists, "epochs": PHASE_A_EPOCHS, "lr": PHASE_A_LR,
+            "train_s": round(time.perf_counter() - t0, 3),
+            "valid_iou": [round(v, 4) for v in
+                          trained["log"]["curves"]["valid_iou"]]}
+
+        # 4. Phases A-C, without and then with global registration
+        calls, greg_ms, first = {}, {}, []
+        current = {"object": None}
+        real_load, real_greg = rec.load_point_cloud, greg.global_registration
+
+        def counted_load(obj, *args, **kw):
+            current["object"] = obj
+            before = knn.nn_cuda.launches
+            out = real_load(obj, *args, **kw)
+            calls[obj] = knn.nn_cuda.launches - before
+            return out
+
+        def timed_greg(*args, **kw):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = real_greg(*args, **kw)
+            torch.cuda.synchronize()
+            greg_ms.setdefault(current["object"], []).append(
+                (1e3 * (time.perf_counter() - t1), float(res.fitness)))
+            if current["object"] == TURNED and not first:
+                first.append(args)
+            return res
+
+        phases = {}
+        for flag in (False, True):
+            calls.clear()
+            with mock.patch.object(rec, "load_point_cloud", counted_load), \
+                    mock.patch.object(greg, "global_registration",
+                                      timed_greg):
+                t0 = time.perf_counter()
+                out = app.create_pose_data(LABEL_DS, global_regression=flag,
+                                           device=dev)
+                torch.cuda.synchronize()
+                total_s = time.perf_counter() - t0
+            stats, times = out["stats"], out["times"]
+            check(stats["n_samples"] > 0 and len(times["pc"]) == len(names),
+                  f"create_pose_data stats {stats}")
+            rot_err = turned_rotation_error(root)
+            phase_a_ious = [iou(io.read_label(p) > 0, truth[(o, r, s)])
+                            for o, r, s, p in label_paths(root, "new_pred")]
+            good = {}
+            for (o, r, _, _), v in zip(label_paths(root, "new_pred"),
+                                       phase_a_ious):
+                good[(o, r)] = good.get((o, r), 0) + (v >= 0.3)
+            phases[flag] = {"s": round(total_s, 3), "stats": stats,
+                            "phase_a_s": round(times["seg"][0], 3),
+                            "phase_b_s": dict(zip(names, (round(v, 3) for v
+                                                          in times["pc"]))),
+                            "phase_c_s": dict(zip(names, (round(v, 3) for v
+                                                          in times["pose"]))),
+                            "nn_calls": dict(calls),
+                            "phase_a_iou_min": round(min(phase_a_ious), 4),
+                            "phase_a_iou_mean": round(float(np.mean(
+                                phase_a_ious)), 4),
+                            # the fewest views of a run with IoU >= 0.3:
+                            # Phase B needs one
+                            "phase_a_good_views_min": min(good.values()),
+                            "turned_rotation_error_deg": rot_err}
+            print(f"offline labeling create_pose_data global_regression="
+                  f"{flag} " + json.dumps(phases[flag]))
+        # the turned object's labels with the extra run, on the card
+        pose_labels.create_pose_label(root, TURNED, with_extra=True,
+                                      global_regression=True, device=dev)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - phase_t0
+        nn_calls = knn.nn_cuda.launches
+        others = (addloss.moments_cuda.launches,
+                  addloss.moments_train_cuda.launches)
+        check(nn_calls > 0, "no nn launch in the offline labeling")
+        check(others == (0, 0), f"sym_moments launches in the offline "
+              f"labeling {others}")
+        turned_greg = greg_ms.get(TURNED, [])
+        report["global_registration"] = {
+            "turned_calls": len(turned_greg),
+            "turned_ms_mean": round(float(np.mean([m for m, _ in
+                                                   turned_greg])), 4),
+            "turned_ms_max": round(max(m for m, _ in turned_greg), 4),
+            "turned_fitness_min": round(min(f for _, f in turned_greg), 4),
+            "turned_fitness_median": round(float(np.median(
+                [f for _, f in turned_greg])), 4),
+            "calls_all_objects": sum(len(v) for v in greg_ms.values())}
+
+        # 5. the turned object, global registration included, on the card
+        # and the CPU at a smaller scale: the same hypotheses, cloud and
+        # labels
+        turned = turned_card_vs_cpu(dev)
+        fpfh = fpfh_card_vs_cpu(first[0])
+        report["turned_card_vs_cpu"] = {**turned, **fpfh}
+        report["create_pose_data"] = {str(k): v for k, v in phases.items()}
+        report["main_path_s"] = round(main_s, 3)
+        report["nn_calls"] = nn_calls
+        report["cuts"] = (f"{LABEL_VIEWS} views a run of a scan's hundreds; "
+                          "synthetic scenes; the U-Nets trained 1 and "
+                          f"{PHASE_A_EPOCHS} epochs of 500")
+        print("offline labeling " + json.dumps(report))
+    return nn_calls
+
+
+def turned_card_vs_cpu(dev) -> dict:
+    """TURNED alone at 320x240 (fx = fy = 300), 8 views a run and 3 extra
+    views, its rendered masks as the new_pred labels: Phases B and C with
+    global registration at the production settings on the card and on the
+    CPU, which must draw the same hypotheses and give clouds and labels
+    within LABEL_ATOL. (At 640x480 and 20 views the CPU's run takes over
+    800 s on the card machine's host.)"""
+    import tempfile
+
+    from autoposeestimation_tpu_torch.labeling import pose_labels
+    from autoposeestimation_tpu_torch.ops import global_registration as greg
+    from autoposeestimation_tpu_torch.reconstruction import (
+        create_pointcloud as rec)
+    from autoposeestimation_tpu_torch.utils import io, synthetic
+
+    draws = []
+    real_draw = greg.draw_samples
+
+    def recorded_draw(*args, **kw):
+        out = real_draw(*args, **kw)
+        draws[-1].append(out)
+        return out
+
+    with tempfile.TemporaryDirectory() as base:
+        cfg = synthetic.SynthConfig(img_h=240, img_w=320, fx=300.0, fy=300.0,
+                                    n_viewpoints=8, noise=1.0)
+        obj = next(o for o in pose_objects() if o.name == TURNED)
+        pose = turn_pose()
+        seconds = []
+        for d in (dev, torch.device("cpu")):
+            root = os.path.join(base, d.type)
+            synthetic.make_dataset(root, objects=[obj], cfg=cfg)
+            write_run(root, turned_object(obj, pose), TURNED_RUN, cfg, pose)
+            write_run(root, turned_object(obj, pose), "extra",
+                      synthetic.SynthConfig(**{**cfg.__dict__,
+                                               "n_viewpoints": 3,
+                                               "ring_height": 300.0}), pose)
+            draws.append([])
+            t0 = time.perf_counter()
+            with mock.patch.object(greg, "draw_samples", recorded_draw):
+                rec.load_point_cloud(
+                    TURNED, io.pc_dir(root), root, mode="new_pred",
+                    reference_point=np.zeros(3), n_viewpoints=30,
+                    min_friends=20, min_dist=5, nb_neighbors=20, threshold=10,
+                    voxel_size=2, voxel_size_out=5, global_regression=True,
+                    icp_point2point=True, icp_point2plane=False, device=d)
+                n_labels = pose_labels.create_pose_label(
+                    root, TURNED, with_extra=True, global_regression=True,
+                    device=d)
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            seconds.append(round(time.perf_counter() - t0, 3))
+        card, cpu = (os.path.join(base, k) for k in (dev.type, "cpu"))
+        same_draws = (len(draws[0]) == len(draws[1]) > 0 and all(
+            torch.equal(a, b) for a, b in zip(*draws)))
+        check(same_draws, f"the CPU drew other hypotheses: {len(draws[1])} "
+              f"draws against the card's {len(draws[0])}")
+        cloud_err = {}
+        for fn in (f"{TURNED}_out.ply", f"{TURNED}.ply", "foreground.ply",
+                   f"{TURNED_RUN}.ply"):
+            a = io.read_ply(os.path.join(io.pc_dir(card), TURNED, fn))
+            b = io.read_ply(os.path.join(io.pc_dir(cpu), TURNED, fn))
+            check(a.shape == b.shape, f"{fn}: {a.shape} on the card, "
+                  f"{b.shape} on the CPU")
+            cloud_err[fn] = float(np.abs(a - b).max())
+            check(cloud_err[fn] <= LABEL_ATOL, f"{fn}: card vs CPU "
+                  f"{cloud_err[fn]} mm")
+        label_err = 0.0
+        for run in io.list_runs(card, TURNED)[1:]:         # background first
+            d = os.path.join(io.label_dir(card), TURNED, run)
+            for f in sorted(os.listdir(d)):
+                if f.endswith(".meta.json"):
+                    a, b = (io.read_pose_label_meta(os.path.join(
+                        io.label_dir(r), TURNED, run, f)) for r in (card, cpu))
+                    label_err = max(label_err, max(float(np.abs(
+                        np.asarray(a[k]) - np.asarray(b[k])).max())
+                        for k in ("position", "rotation", "robot2object",
+                                  "cam2robot")))
+        check(label_err <= LABEL_ATOL, f"turned object labels: card vs CPU "
+              f"{label_err}")
+        return {"scale": "320x240, 8 views a run, 3 extra",
+                "draws": len(draws[1]), "same_draws": same_draws,
+                "cloud_points": len(io.read_ply(os.path.join(
+                    io.pc_dir(cpu), TURNED, f"{TURNED}_out.ply"))),
+                "cloud_max_abs_mm": cloud_err, "labels": n_labels,
+                "label_max_abs": label_err, "card_s": seconds[0],
+                "cpu_s": seconds[1]}
+
+
+def turned_rotation_error(root: str) -> float:
+    """The largest angle (degrees) between a turned-run label's rotation
+    (robot2object) and the run's written object_pose."""
+    from autoposeestimation_tpu_torch.utils import io
+
+    d = os.path.join(io.label_dir(root), TURNED, TURNED_RUN)
+    written = turn_pose()[:3, :3]
+    worst = 0.0
+    for f in sorted(os.listdir(d)):
+        if f.endswith(".meta.json"):
+            rot = io.read_pose_label_meta(os.path.join(d, f))[
+                "robot2object"][:3, :3]
+            c = (np.trace(rot.T @ written) - 1.0) / 2.0
+            worst = max(worst, float(np.degrees(np.arccos(np.clip(c, -1, 1)))))
+    return round(worst, 4)
+
+
+def fpfh_card_vs_cpu(args) -> dict:
+    """The first global registration of the turned object, its FPFH and
+    correspondences on the card and on the CPU: how many points' features
+    differ (beyond 1e-4) and how many correspondences."""
+    from autoposeestimation_tpu_torch.ops import global_registration as greg
+    from autoposeestimation_tpu_torch.ops import pointcloud as pc
+
+    source, svalid, target, tvalid, voxel = args[:5]
+    out = []
+    for d in (source.device, torch.device("cpu")):
+        s, sv, t, tv = (x.to(d) for x in (source, svalid, target, tvalid))
+        fs = greg.compute_fpfh(s, sv, 5.0 * voxel,
+                               normals=pc.estimate_normals(s, sv))
+        ft = greg.compute_fpfh(t, tv, 5.0 * voxel,
+                               normals=pc.estimate_normals(t, tv))
+        out.append((fs.cpu(), ft.cpu(),
+                    greg.feature_match(fs, ft, tv).cpu()))
+    (fs, ft, m), (cfs, cft, cm) = out
+    valid = svalid.cpu()
+    return {"points": int(valid.sum()),
+            "fpfh_points_differ": int((~torch.isclose(
+                torch.cat([fs, ft]), torch.cat([cfs, cft]), rtol=1e-4,
+                atol=1e-4).all(1)).sum()),
+            "correspondences_differ": int((m != cm)[valid].sum())}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2615,15 +3165,18 @@ def main() -> int:
     train_kernel = train_kernel_phase(dev, clock_mhz)
     train_kernel["launches"] = training_phase(dev)
     nn_kernel = nn_phase(dev, clock_mhz)
-    # each call is two kernels, a scan and its merge
-    nn_kernel["calls"] = reconstruction_phase(dev)
-    nn_kernel["launches"] = 2 * nn_kernel["calls"]
-    nn_kernel["kernels_per_call"] = 2
+    nn_calls = {"reconstruction": reconstruction_phase(dev)}
     # training from a dataset runs both moments kernels: their launches
     # there join those of phases 5 and 7
     ds_train, ds_fwd = dataset_training_phase(dev)
     serving_stream_phase(dev)
     segmentation_training_phase(dev)
+    nn_calls["offline_labeling"] = labeling_phase(dev)
+    # each call is two kernels, a scan and its merge
+    nn_kernel["calls_by_phase"] = nn_calls
+    nn_kernel["calls"] = sum(nn_calls.values())
+    nn_kernel["launches"] = 2 * nn_kernel["calls"]
+    nn_kernel["kernels_per_call"] = 2
     kernel["launches_by_phase"] = {"evaluation": kernel["launches"],
                                    "dataset_training": ds_fwd}
     kernel["launches"] += ds_fwd

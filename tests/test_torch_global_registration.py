@@ -1,0 +1,225 @@
+"""The port's FPFH + RANSAC global registration against the JAX package on
+the CPU, on the JAX tests' asymmetric blob (800 points, 1024 slots).
+
+- `compute_fpfh`: within 1e-6 relative (and 1e-6 absolute) of JAX's, with
+  both given the same normals. Where an entry differs by more, the point or
+  one of its neighbours must have an angle within 1e-5 of a bin edge (the
+  bin moved there). The JAX side's `knn_k` is given exact distances
+  (`exact_knn_k`, the direct form in f32): its own expansion form
+  |q|^2 + |r|^2 - 2 q.r loses 0.1-0.4 % of the distance of neighbours
+  0.1 mm apart 20 mm from the origin (up to 0.004 mm measured), which moves
+  FPFH's angles by up to 0.1 rad; the port's `knn_k` is exact.
+- `feature_match`: equal indices.
+- RANSAC with JAX's `jax.random.categorical` draw injected: the same
+  `valid`, the transform within 1e-4 and an equal fitness.
+- the port's own draw: uniform over the valid correspondences, the same
+  for the same seed.
+- a 75-degree rotation recovered, and `icp_regression(
+  global_regression=True)` within 0.02 of JAX's transform (the two draws
+  differ; ICP takes both to the same minimum)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from autoposeestimation_tpu.ops import global_registration as jgreg
+from autoposeestimation_tpu.ops import icp as jicp
+from autoposeestimation_tpu.ops import knn as jknn
+from autoposeestimation_tpu.ops import pointcloud as jpc
+from autoposeestimation_tpu_torch.ops import global_registration as greg
+from autoposeestimation_tpu_torch.ops import icp, knn
+from test_global_registration import angle_between, bumpy_cloud, rot_about
+from test_torch_seg_models import two_threads  # noqa: F401
+
+FEAT_RTOL = 1e-6
+FEAT_ATOL = 1e-6
+EDGE = 1e-5           # an angle this close to a bin edge may move its bin
+TF_ATOL = 1e-4
+ICP_TF_ATOL = 0.02
+ROT = rot_about([0.3, 0.5, 0.8], 75.0)
+SHIFT = np.asarray([15.0, -10.0, 8.0], np.float32)
+
+
+def exact_knn_k(query, ref, k, ref_valid=None, chunk=1024):
+    """JAX's knn_k on direct-form f32 distances."""
+    q = query.astype(jnp.float32)
+    r = ref.astype(jnp.float32)
+    d2 = jnp.sum((q[:, None, :] - r[None, :, :]) ** 2, axis=-1)
+    if ref_valid is not None:
+        d2 = jnp.where(ref_valid[None, :], d2, jnp.inf)
+    neg, idx = jax.lax.top_k(-d2, k)
+    return idx.astype(jnp.int32), jnp.sqrt(jnp.maximum(-neg, 0.0))
+
+
+@pytest.fixture
+def jax_exact_knn(monkeypatch):
+    monkeypatch.setattr(jknn, "knn_k", exact_knn_k)
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
+def padded(cloud):
+    return jpc.pad_bucket(cloud, min_size=1024)
+
+
+def t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def pair(seed=0):
+    """The blob and its copy turned by 75 degrees and shifted, padded."""
+    cloud = bumpy_cloud(seed=seed)
+    return padded(cloud), padded(cloud @ ROT.T + SHIFT)
+
+
+def near_edge_points(points, valid, normals, radius):
+    """Points one of whose angles (or a neighbour's) lies within EDGE of a
+    bin edge, from the port's own angles."""
+    pts = t(points)
+    idx, dist = knn.knn_k(pts, pts, 31, ref_valid=t(valid))
+    idx, dist = idx[:, 1:].long(), dist[:, 1:]
+    nbr = (t(valid)[idx] & t(valid)[:, None] & (dist <= radius)).numpy()
+    near = np.zeros(len(points), bool)
+    for x, lo, hi in zip(greg.fpfh_angles(pts, t(normals), idx, dist),
+                         (-1.0, -1.0, -np.pi), (1.0, 1.0, np.pi)):
+        pos = (x.numpy() - lo) / (hi - lo) * 11.0
+        at_edge = np.abs(pos - np.round(pos)) * (hi - lo) / 11.0 < EDGE
+        near |= (at_edge & nbr).any(1)
+    idx = idx.numpy()
+    return near | (near[idx] & nbr).any(1)
+
+
+@pytest.mark.parametrize("normals", ["given", "own"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_compute_fpfh(jax_exact_knn, seed, normals):
+    """With JAX's normals given to both, and with each package's own (the
+    port's from an f64 eigh, JAX's from an f32 one: 1e-4 there)."""
+    (p, v), _ = pair(seed)
+    jn = np.asarray(jpc.estimate_normals(jnp.asarray(p), jnp.asarray(v)))
+    given = normals == "given"
+    want = np.asarray(jgreg.compute_fpfh(
+        jnp.asarray(p), jnp.asarray(v), jnp.float32(10.0),
+        normals=jnp.asarray(jn) if given else None))
+    got = greg.compute_fpfh(t(p), t(v), 10.0,
+                            normals=t(jn) if given else None).numpy()
+    assert got.shape == (1024, 33) and got.dtype == np.float32
+    assert (got[~v] == 0).all() and (got[v].sum(1) > 0).all()
+    off = ~np.isclose(got, want, rtol=FEAT_RTOL, atol=FEAT_ATOL).all(1)
+    if not given:
+        off &= ~np.isclose(got, want, rtol=1e-4, atol=1e-4).all(1)
+    if off.any():
+        used = jn if given else greg.pc.estimate_normals(t(p), t(v)).numpy()
+        used = greg._orient_normals_outward(t(p), t(v), t(used)).numpy()
+        near = near_edge_points(p, v, used, 10.0)
+        assert not (off & ~near).any(), np.nonzero(off & ~near)
+
+
+@pytest.fixture(scope="module")
+def features():
+    """JAX's normals and FPFH of both clouds (its own knn_k), given to both
+    packages."""
+    (p1, v1), (p2, v2) = pair(0)
+    out = {}
+    for name, p, v in (("src", p1, v1), ("tgt", p2, v2)):
+        n = jpc.estimate_normals(jnp.asarray(p), jnp.asarray(v))
+        out[name] = (p, v, np.asarray(jgreg.compute_fpfh(
+            jnp.asarray(p), jnp.asarray(v), jnp.float32(10.0), normals=n)))
+    return out
+
+
+def test_feature_match(features):
+    (_, v1, f1), (_, v2, f2) = features["src"], features["tgt"]
+    want = np.asarray(jgreg.feature_match(jnp.asarray(f1), jnp.asarray(f2),
+                                          jnp.asarray(v2)))
+    got = greg.feature_match(t(f1), t(f2), t(v2)).numpy()
+    np.testing.assert_array_equal(got, want)
+    # ties go to the first index
+    f2_dup = f2.copy()
+    f2_dup[5] = f2_dup[3]
+    got = greg.feature_match(t(f2_dup[3:4]), t(f2_dup), t(v2)).numpy()
+    assert got[0] == 3
+
+
+def jax_draw(key, corr_ok, h=2048, n=4):
+    logits = jnp.where(jnp.asarray(corr_ok), 0.0, -1e9)
+    return np.asarray(jax.random.categorical(key, logits[None, :],
+                                             shape=(h, n)))
+
+
+@pytest.mark.parametrize("case", ["turned", "noise"])
+def test_ransac_with_the_jax_draw(features, case):
+    (p1, v1, f1), (p2, v2, f2) = features["src"], features["tgt"]
+    if case == "noise":         # no rigid map: f1 against shuffled targets
+        rng = np.random.default_rng(0)
+        p2 = np.where(v2[:, None], rng.uniform(-30, 30, p2.shape), 0.0
+                      ).astype(np.float32)
+    key = jax.random.PRNGKey(7)
+    want = jgreg.ransac_feature_registration(
+        *(jnp.asarray(a) for a in (p1, v1, p2, v2, f1, f2)),
+        jnp.float32(3.0), key)
+    corr = np.asarray(jgreg.feature_match(jnp.asarray(f1), jnp.asarray(f2),
+                                          jnp.asarray(v2)))
+    samples = jax_draw(key, v1 & v2[corr])
+    got = greg.ransac_feature_registration(
+        *(t(a) for a in (p1, v1, p2, v2, f1, f2)), 3.0,
+        samples=t(samples))
+    assert bool(got.valid) == bool(want.valid)
+    np.testing.assert_allclose(got.transformation.numpy(),
+                               np.asarray(want.transformation),
+                               atol=TF_ATOL, rtol=0)
+    assert float(got.fitness) == float(want.fitness)
+    np.testing.assert_allclose(float(got.inlier_rmse),
+                               float(want.inlier_rmse), atol=1e-5)
+    if case == "turned":
+        assert float(got.fitness) > 0.9
+        assert angle_between(got.transformation.numpy()[:3, :3], ROT) < 1.0
+
+
+def test_draw_samples():
+    ok = torch.zeros(50, dtype=torch.bool)
+    ok[[3, 10, 11, 40]] = True
+    a = greg.draw_samples(ok, 4000, 4, torch.Generator().manual_seed(1))
+    b = greg.draw_samples(ok, 4000, 4, torch.Generator().manual_seed(1))
+    assert a.shape == (4000, 4) and torch.equal(a, b)
+    values, counts = torch.unique(a, return_counts=True)
+    assert values.tolist() == [3, 10, 11, 40]
+    assert counts.min() > 0.9 * 4000 and counts.max() < 1.1 * 4000
+    # the default generator is seeded 0; with nothing valid, all indices
+    assert torch.equal(greg.draw_samples(ok, 8, 4),
+                       greg.draw_samples(ok, 8, 4))
+    none = greg.draw_samples(torch.zeros(5, dtype=torch.bool), 200, 4)
+    assert set(none.unique().tolist()) == set(range(5))
+
+
+def test_recovers_a_large_rotation():
+    (p1, v1), (p2, v2) = pair(0)
+    res = greg.global_registration(t(p1), t(v1), t(p2), t(v2), 2.0)
+    got = res.transformation.numpy()
+    assert bool(res.valid)
+    assert angle_between(got[:3, :3], ROT) < 10.0
+    assert np.linalg.norm(got[:3, 3] - SHIFT) < 5.0
+    assert float(res.fitness) > 0.3
+
+
+def test_icp_regression_with_global_registration():
+    cloud = bumpy_cloud(seed=1)
+    moved = cloud @ ROT.T + SHIFT
+    (s, sv), (g, gv) = padded(cloud), padded(moved)
+    kw = dict(voxel_size=2.0, threshold=100.0, icp_point2point=True,
+              icp_point2plane=False)
+    *_, want = jicp.icp_regression(*(jnp.asarray(a) for a in (g, gv, s, sv)),
+                                   global_regression=True, **kw)
+    want = np.asarray(want)
+    outs = {}
+    for flag in (False, True):
+        *_, tf = icp.icp_regression(*(t(a) for a in (g, gv, s, sv)),
+                                    global_regression=flag, **kw)
+        tf = tf.numpy()
+        outs[flag] = (tf, float(np.sqrt(((
+            cloud @ tf[:3, :3].T + tf[:3, 3] - moved) ** 2).sum(1)).mean()))
+    assert outs[False][1] > 5.0       # plain ICP does not get there
+    tf, err = outs[True]
+    assert err < 2.0 and angle_between(tf[:3, :3], ROT) < 5.0
+    np.testing.assert_allclose(tf, want, atol=ICP_TF_ATOL, rtol=0)

@@ -98,9 +98,17 @@ def test_icp_regression_against_jax():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     np.testing.assert_allclose(got[4].numpy(), np.asarray(want[4]),
                                atol=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        icp.icp_regression(*(torch.from_numpy(x) for x in (t, tv, s, sv)),
-                           global_regression=True)
+    # with the FPFH + RANSAC initial transform (each package's own draw):
+    # the same registration
+    want = jicp.icp_regression(jnp.asarray(t), jnp.asarray(tv),
+                               jnp.asarray(s), jnp.asarray(sv),
+                               voxel_size=2.0, threshold=50.0,
+                               global_regression=True)
+    got = icp.icp_regression(*(torch.from_numpy(x) for x in (t, tv, s, sv)),
+                             voxel_size=2.0, threshold=50.0,
+                             global_regression=True)
+    np.testing.assert_allclose(got[4].numpy(), np.asarray(want[4]),
+                               atol=1e-4)
 
 
 def test_kabsch_and_point2plane_step_against_jax():

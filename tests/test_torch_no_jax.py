@@ -34,7 +34,7 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     count, loaded = res.stdout.split(" ", 1)
-    assert int(count) >= 30
+    assert int(count) >= 58
     assert loaded.strip() == "[]"
 
 
@@ -55,7 +55,7 @@ def test_port_imports_without_pil_or_matplotlib():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     count, loaded = res.stdout.split(" ", 1)
-    assert int(count) >= 42
+    assert int(count) >= 58
     assert loaded.strip() == "[]"
 
 
