@@ -12,6 +12,9 @@ What is reproduced of Pillow (12.x):
   * `Image.blend`, the core of `ImageEnhance`: `in1 + alpha * (in2 - in1)`
     in C float with alpha cast to float, truncated toward zero; outside
     0 <= alpha <= 1 the result is clipped to 0..255 first.
+  * `ImageFilter.GaussianBlur(radius)`: three passes of the extended box
+    blur of BoxBlur.c in 24-bit fixed point along each axis
+    (`gaussian_blur`).
   * `convert("L")`: fixed-point luma (r*19595 + g*38470 + b*7471 +
     0x8000) >> 16.
   * `convert("HSV")` and back: Pillow's own float/double mix, rounding and
@@ -177,6 +180,70 @@ def color_jitter(img: np.ndarray, brightness: float = 0.2,
     for i in idx:
         img = ops[i](img)
     return img
+
+
+# ---------------------------------------------------------------------------
+# Gaussian blur
+# ---------------------------------------------------------------------------
+
+def _f32(v) -> np.float32:
+    return np.float32(v)
+
+
+def box_blur_radius(sigma: float, passes: int = 3) -> np.float32:
+    """Pillow's `_gaussian_blur_radius` (BoxBlur.c): the extended box
+    radius whose `passes` box blurs approximate a Gaussian of standard
+    deviation `sigma`, in C's float and double steps (Gwosdek et al. 2011,
+    eqs. 7, 11, 14)."""
+    sigma2 = _f32(_f32(_f32(sigma) * _f32(sigma)) / _f32(passes))
+    big_l = _f32(np.sqrt(12.0 * np.float64(sigma2) + 1.0))
+    small_l = _f32(np.floor((np.float64(big_l) - 1.0) / 2.0))
+    a = _f32(_f32(_f32(2) * small_l) + _f32(1)) * _f32(
+        small_l * _f32(small_l + _f32(1)) - _f32(_f32(3) * sigma2))
+    a = _f32(a / _f32(_f32(6) * _f32(
+        sigma2 - _f32(_f32(small_l + 1) * _f32(small_l + 1)))))
+    return _f32(small_l + a)
+
+
+def _box_blur_pass(img: np.ndarray, radius: np.float32, axis: int
+                   ) -> np.ndarray:
+    """One pass of Pillow's `ImagingHorizontalBoxBlur` along `axis` of a
+    uint8 array: the 2r+1 pixels around x (edges repeated) weigh ww and the
+    two beyond them fw, both 24-bit fixed point, and the sum rounds to
+    uint8 as (sum + 2^23) >> 24."""
+    r = int(radius)
+    ww = np.uint64(_f32(_f32(16777216) / _f32(_f32(radius * _f32(2))
+                                              + _f32(1))))
+    fw = (np.uint64(1 << 24) - np.uint64(2 * r + 1) * ww) // np.uint64(2)
+    n = img.shape[axis]
+    src = np.take(img, np.clip(np.arange(-r - 1, n + r + 1), 0, n - 1),
+                  axis=axis).astype(np.uint64)
+    csum = np.cumsum(src, axis=axis)
+    zero = np.zeros_like(np.take(csum, [0], axis=axis))
+    csum = np.concatenate([zero, csum], axis=axis)
+    x = np.arange(n)
+    window = (np.take(csum, x + 2 * r + 2, axis=axis)
+              - np.take(csum, x + 1, axis=axis))
+    far = np.take(src, x, axis=axis) + np.take(src, x + 2 * r + 2, axis=axis)
+    bulk = window * ww + far * fw
+    return ((bulk + np.uint64(1 << 23)) >> np.uint64(24)).astype(np.uint8)
+
+
+def gaussian_blur(img: np.ndarray, sigma: float, passes: int = 3
+                  ) -> np.ndarray:
+    """`img.filter(ImageFilter.GaussianBlur(radius=sigma))` of a uint8
+    image (H, W) or (H, W, C): Pillow's extended box blur, `passes`
+    horizontal passes, then `passes` vertical passes over their result, each
+    rounded to uint8."""
+    if sigma == 0:
+        return img.copy()
+    radius = box_blur_radius(sigma, passes)
+    out = img
+    for axis in (1, 0):
+        if radius != 0:
+            for _ in range(passes):
+                out = _box_blur_pass(out, radius, axis)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -40,9 +40,23 @@ logs/images/ (test_images_epoch_<N>.png, losses.png).
 serve a camera (one frame at a time, or through `predict.serve_stream`)
 and grasp an object with the hand-eye transform of
 `<root>/hand_eye_calibration/data/handEye_tf.json`.
+
+    app.acquire_new_data_from_object("mug", path_data=paths.load_path(p))
+    app.visualise("segmentation masks", "mug")
+
+scan an object (a background and a foreground run, or the reference's
+full scan of turns) into `<root>/data_generation/data/<object>/`, and
+show a run's masks or pose labels.
+
+    python -m autoposeestimation_tpu_torch.main --root W [--device cpu]
+
+runs the menu of every action on workspace W. The menu calls each action
+with no arguments, so every action runs on the App's `device` (`--device`,
+cuda by default).
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import os
 import time
@@ -52,12 +66,16 @@ from typing import Callable, Dict, Optional
 import numpy as np
 
 from . import weights
+from .acquisition import get_data as gd
 from .data import loader, pose_dataset, segmentation_dataset
+from .hardware import camera as camera_mod
 from .hardware import hand_eye
+from .hardware import robot as robot_mod
 from .labeling import create_labels as cl
 from .labeling import make_dataset
 from .models.unet import UNet
 from .pipeline import grasping, predict, tui
+from .pipeline import visualize as viz
 from .train import checkpoints
 from .train import densefusion as dft
 from .train import segmentation as seg
@@ -89,6 +107,11 @@ class App:
     print_fn: Callable[[str], None] = print
     reference_point: np.ndarray = field(
         default_factory=lambda: REFERENCE_POINT.copy())
+    # where an action runs when it is given no device (the menu gives none)
+    device: Optional[str] = None
+
+    def _device(self, device):
+        return self.device if device is None else device
 
     def _select_objects(self, multi: bool = True):
         return tui.get_selection("objects", io.list_objects(self.root),
@@ -121,7 +144,7 @@ class App:
             checkpoints.load_checkpoint(os.path.join(
                 self.root, "segmentation", "trained_models", ds_name,
                 "Unet_resnet34.ckpt"))["variables"]))
-        return model.eval().to(resolve_device(device))
+        return model.eval().to(resolve_device(self._device(device)))
 
     def _load_bs_model(self, device=None) -> UNet:
         """The learned background subtraction U-Net (7 channels, 2 classes,
@@ -132,7 +155,61 @@ class App:
             checkpoints.load_checkpoint(os.path.join(
                 self.root, "background_subtraction", "trained_models",
                 "Unet_resnet34.ckpt"))["variables"]))
-        return model.eval().to(resolve_device(device))
+        return model.eval().to(resolve_device(self._device(device)))
+
+    # the reference's full scan (main.py:103-135): background, an
+    # upright foreground run, a 180-degree turn and three 90-degree turns
+    DEFAULT_RUNS = {
+        "background": {"a": 0, "b": 0, "c": 0},
+        "foreground": {"a": 0, "b": 0, "c": 0},
+        "foreground180": {"a": 0, "b": 0, "c": 180},
+        "foreground90": {"a": 90, "b": 0, "c": 0},
+        "foreground90_2": {"a": 90, "b": 0, "c": 90},
+        "foreground90_3": {"a": 90, "b": 0, "c": 180},
+    }
+
+    def acquire_new_data_from_object(self, name: Optional[str] = None,
+                                     path_data: Optional[Dict] = None,
+                                     runs: Optional[Dict] = None,
+                                     symmetric: int = 0,
+                                     continue_at: Optional[str] = None,
+                                     with_turns: bool = False) -> int:
+        """Scan the object (asked for in the TUI unless given) along the
+        viewpoint path `path_data`: a background and a foreground run, or
+        with `with_turns` every run of DEFAULT_RUNS. `runs` maps
+        run name -> object_pose dict (the turn declared for that run);
+        `continue_at` resumes the scan at a named run. Each run starts
+        from home. Host-side only: nothing runs on the card. Returns the
+        viewpoint samples captured."""
+        name = name or self.input_fn("object name> ").strip()
+        camera = self.camera_factory()
+        controller = self.controller_factory()
+        hand_eye_tf = self._load_hand_eye()
+        if runs is None:
+            runs = (dict(self.DEFAULT_RUNS) if with_turns else {
+                "background": {"a": 0, "b": 0, "c": 0},
+                "foreground": {"a": 0, "b": 0, "c": 0},
+            })
+        total = 0
+        started = continue_at is None
+        for run, object_pose in runs.items():
+            if not started:
+                if run == continue_at:
+                    started = True
+                else:
+                    continue
+            if run != "background":
+                self.print_fn(f"place/turn object for run '{run}' "
+                              f"(pose {object_pose})")
+            if not controller.is_home():
+                controller.move_joints(np.deg2rad(
+                    np.asarray(robot_mod.HOME_JOINTS_DEG)))
+                while controller.is_moving():
+                    time.sleep(0.05)
+            total += gd.get_data(camera, controller, path_data, self.root,
+                                 name, run, object_pose, symmetric=symmetric,
+                                 hand_eye_calibration=hand_eye_tf)
+        return total
 
     def create_labels(self, objects=None, mode: str = "gen",
                       device=None) -> int:
@@ -148,7 +225,7 @@ class App:
             if model is None:
                 total += cl.create_labels(
                     obj, self.root, reference_point=self.reference_point,
-                    device=device)
+                    device=self._device(device))
             else:
                 total += cl.create_mask_predictions(
                     obj, self.root, model,
@@ -170,7 +247,8 @@ class App:
         model = self._load_seg_model(ds_name, len(classes) + 1, device)
         return cl.create_pose_data(
             self.root, classes, ds_name, model, self.reference_point,
-            global_regression=global_regression, device=device)
+            global_regression=global_regression,
+            device=self._device(device))
 
     def create_dataset(self, objects=None, kind: str = "segmentation",
                        save_name: Optional[str] = None, mode: str = "pred",
@@ -207,7 +285,7 @@ class App:
             lambda: loader.Loader(train_ds, cfg.batch_size),
             lambda: loader.Loader(valid_ds, cfg.batch_size, shuffle=False,
                                   drop_last=False),
-            cfg, out_dir=out_dir, device=device)
+            cfg, out_dir=out_dir, device=self._device(device))
 
     def train_pose_estimation(self, ds_name: Optional[str] = None,
                               epochs: Optional[int] = None,
@@ -226,7 +304,7 @@ class App:
             "classes.txt"))
         cfg = dft.DFConfig(**overrides)
         state = dft.create_trainer(num_obj=len(classes), cfg=cfg,
-                                   device=device)
+                                   device=self._device(device))
         if warm_start:
             dft.warm_start(state, warm_start, warm_start_refine)
         train_ds = pose_dataset.PoseDataset(
@@ -271,8 +349,8 @@ class App:
         given)."""
         if models is None:
             ds_name = ds_name or self._select_dataset("segmentation")
-            models = predict.get_prediction_models(self.root, ds_name,
-                                                   device=device)
+            models = predict.get_prediction_models(
+                self.root, ds_name, device=self._device(device))
         camera = self.camera_factory()
         meta = {"intr": camera.get_intrinsics(),
                 "depth_scale": camera.get_depth_scale()}
@@ -330,9 +408,102 @@ class App:
         """Predict from the 5 view points with the dataset's trained
         weights (on `device`, cuda unless given) and grasp `cls` by its
         taught delta."""
-        models = predict.get_prediction_models(self.root, ds_name,
-                                               device=device)
+        models = predict.get_prediction_models(
+            self.root, ds_name, device=self._device(device))
         return grasping.execute_grasp(
             self.controller_factory(), self.camera_factory(),
             self._load_hand_eye(), models, self.root, ds_name, cls,
             confirm=confirm)
+
+    def visualise(self, kind: Optional[str] = None, obj: Optional[str] = None,
+                  run: str = "foreground", mode: str = "gen",
+                  show=None) -> int:
+        """The mask-overlay or pose-label slideshow of a run (kind and
+        object asked for in the TUI unless given). `show(frame)` receives
+        each uint8 frame (by default matplotlib, where it is installed);
+        returns the frame count."""
+        kind = kind or tui.get_selection(
+            "visualisation", ["segmentation masks", "pose labels"],
+            input_fn=self.input_fn, print_fn=self.print_fn)
+        obj = obj or self._select_objects(multi=False)
+        if show is None:
+            def show(frame):
+                try:
+                    import matplotlib.pyplot as plt
+
+                    plt.imshow(frame)
+                    plt.pause(0.05)
+                except Exception:
+                    pass
+
+        token = viz.CancellationToken()
+        gen = (viz.visualise_segmentation_masks(self.root, obj, run, mode,
+                                                token=token)
+               if kind == "segmentation masks"
+               else viz.visualise_pose_labels(self.root, obj, run,
+                                              token=token))
+        n = 0
+        for frame in gen:
+            show(frame)
+            n += 1
+        return n
+
+    ACTIONS = [
+        ("acquire new data from object", "acquire_new_data_from_object"),
+        ("create labels", "create_labels"),
+        ("create pose labels", "create_pose_data"),
+        ("create data set", "create_dataset"),
+        ("train segmentation", "train_segmentation"),
+        ("train pose estimation", "train_pose_estimation"),
+        ("run live prediction", "run_live_prediction"),
+        ("visualise", "visualise"),
+        ("teach grasping", "teach_grasping"),
+        ("grasp", "grasp"),
+        ("quit", None),
+    ]
+
+    def main(self) -> None:
+        """The menu loop: choose an action, run it with no arguments, until
+        'quit'. A failing action prints 'action failed: ...' and the loop
+        goes on."""
+        while True:
+            choice = tui.get_selection(
+                "action", [a for a, _ in self.ACTIONS],
+                input_fn=self.input_fn, print_fn=self.print_fn)
+            method = dict(self.ACTIONS).get(choice)
+            if method is None:
+                return
+            try:
+                getattr(self, method)()
+            except Exception as exc:  # surface, keep the loop alive
+                self.print_fn(f"action failed: {exc}")
+
+
+def main() -> None:
+    """`python -m autoposeestimation_tpu_torch.main --root W [--device D]`:
+    the menu on workspace W, with a RealSense camera where its SDK finds
+    one (else the synthetic FakeDepthCam) and the FakeRobot; every action
+    runs on D (cuda by default)."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--root", default=os.getcwd())
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args()
+    resolve_device(args.device)
+
+    def camera_factory():
+        try:
+            cam = camera_mod.RealSenseCam()
+        except Exception:
+            cam = camera_mod.FakeDepthCam()
+        print(f"camera: {type(cam).__name__}")
+        return cam
+
+    def controller_factory():
+        return robot_mod.FakeRobot()
+
+    App(args.root, camera_factory, controller_factory,
+        device=args.device).main()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,9 @@
-"""Terminal selection with injectable IO (port of `get_selection` of
-`autoposeestimation_tpu/pipeline/tui.py`)."""
+"""Terminal prompts with injectable IO (port of
+`autoposeestimation_tpu/pipeline/tui.py`): numbered selection and
+yes/no/quit questions."""
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+from typing import Callable, List, Sequence, Tuple
 
 
 def get_selection(name: str, options: Sequence[str], multi: bool = False,
@@ -43,3 +44,23 @@ def get_selection(name: str, options: Sequence[str], multi: bool = False,
             return choice
         if choice not in selected:
             selected.append(choice)
+
+
+def get_true_or_false(question: str, default: bool = True,
+                      input_fn: Callable[[str], str] = input,
+                      print_fn: Callable[[str], None] = print
+                      ) -> Tuple[bool, bool]:
+    """Returns (answer, move_on): 'q' aborts (move_on=False), empty input
+    takes the default — matching get_True_or_False semantics."""
+    d = "Y/n" if default else "y/N"
+    while True:
+        raw = input_fn(f"{question} [{d}] ('q'=quit)> ").strip().lower()
+        if raw == "q":
+            return default, False
+        if raw == "":
+            return default, True
+        if raw in ("y", "yes", "true", "1"):
+            return True, True
+        if raw in ("n", "no", "false", "0"):
+            return False, True
+        print_fn("please answer y/n/q")

@@ -102,8 +102,12 @@ def write_pose_label_meta(path: str, position, rotation, cls_name: str,
 
 
 def read_color(path: str) -> np.ndarray:
-    """RGB uint8 (H, W, 3); grey is repeated, alpha dropped."""
+    """RGB uint8 (H, W, 3), as Pillow's `convert("RGB")` gives it: grey is
+    repeated, alpha dropped. A 16-bit or palette PNG raises ValueError."""
     img = png.read(path)
+    if img.dtype != np.uint8:
+        raise ValueError(f"{path}: a {img.dtype} image is not a colour "
+                         f"image")
     if img.ndim == 2:
         return np.repeat(img.astype(np.uint8)[..., None], 3, axis=2)
     return np.ascontiguousarray(img[..., :3])

@@ -154,7 +154,11 @@ def encode(array: np.ndarray) -> bytes:
 
 def read(path: str) -> np.ndarray:
     with open(path, "rb") as f:
-        return decode(f.read())
+        data = f.read()
+    try:
+        return decode(data)
+    except ValueError as exc:
+        raise ValueError(f"{path}: {exc}") from exc
 
 
 def write(path: str, array: np.ndarray) -> None:

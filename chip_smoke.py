@@ -94,7 +94,22 @@ Phases (any failure raises and the script exits non-zero):
      object, RANSAC ms and fitness, the turned run's rotation error), and
      the turned object's Phases B and C with global registration at
      320x240 on the card and the CPU: the same drawn hypotheses, clouds
-     and labels within 1e-3 (one `offline labeling {...}` line).
+     and labels within 1e-3 (one `offline labeling {...}` line),
+ 14. host shells and experiments: `collect_and_calibrate` through a
+     FakeRobot's 10 stations (the board poses of a known X patched in: no
+     cv2 on this machine), X within 1e-5 / 0.01 mm and its handEye_tf.json;
+     `App.acquire_new_data_from_object` with a 640x480 FakeDepthCam and a
+     travelling FakeRobot on a 12-view ring path with via points (views,
+     extra samples, every robot2endEff_tf within 1e-3 mm of an f64
+     recomputation), `fix_symmetric`, `clean_extra_data`, `App.create_labels`
+     'gen' (IoU against the renders above 0.6) and `gt_test`; `eval_ycb`
+     (21 objects, 16 frames of 3) and `eval_linemod` (objects 1 and 2, 16
+     frames each) at DFConfig defaults on written 640x480 trees, a batch of
+     each again with the plain moments (dis within 1e-5); the sweeps
+     (`train_pose_estimation_exp` over p_viewpoints 1.0 and 0.5, one epoch
+     each, `eval_exp`, `plot_pose_exp_results`) on phase 10's dataset; and
+     `App.main` with scripted input (one `host shells and experiments
+     {...}` line).
 With `--nn-timing ROOT` it runs only phase 8's timing, of the port in the
 checkout at ROOT, and prints it as one JSON line: run it on two checkouts
 back to back on one card to compare them alike. `--train-timing ROOT` does
@@ -106,6 +121,7 @@ Then one JSON line with the kernels' numbers, and last the JSON result line.
 Needs no network; imports nothing of JAX.
 """
 import contextlib
+import functools
 import itertools
 import json
 import os
@@ -232,7 +248,7 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-# --- phase 2: kernels ----------------------------------------------------------
+# --- phase 2: kernels --------------------------------------------------------
 
 def moment_cases(dev):
     """(name, rot, pred_t, model, target) at the evaluation shape, plus a
@@ -439,7 +455,7 @@ def kernel_phase(dev, clock_mhz: float):
     }
 
 
-# --- phase 3: serving ------------------------------------------------------------
+# --- phase 3: serving --------------------------------------------------------
 
 def headline_frames():
     from autoposeestimation_tpu_torch.utils import synthetic
@@ -516,7 +532,7 @@ def serving_phase(dev) -> None:
                 1e3 / median)
 
 
-# --- phase 4: card vs CPU ----------------------------------------------------------
+# --- phase 4: card vs CPU ----------------------------------------------------
 
 def card_vs_cpu_phase(dev) -> None:
     from autoposeestimation_tpu_torch.pipeline import predict
@@ -563,7 +579,7 @@ def card_vs_cpu_phase(dev) -> None:
           f"{max(np.abs(gpu[n] - cpu[n]).max() for n in ('quats', 'positions')):.3e}")
 
 
-# --- phase 5: evaluation ------------------------------------------------------------
+# --- phase 5: evaluation -----------------------------------------------------
 
 def eval_batches(dev, model_points, n_batches=4, b=8, n=1000, m=500,
                  crop=320):
@@ -653,7 +669,7 @@ def eval_phase(dev):
     return launches, err
 
 
-# --- phase 6: training kernel -------------------------------------------------
+# --- phase 6: training kernel ------------------------------------------------
 
 def camera_case(dev, b=8, n=1000, m=500):
     """Training-like candidates at the batches' 0.6 m camera depth: the
@@ -989,7 +1005,7 @@ def train_kernel_phase(dev, clock_mhz: float):
     }
 
 
-# --- phase 7: training --------------------------------------------------------
+# --- phase 7: training -------------------------------------------------------
 
 def timed_steps(step, count: int) -> float:
     """ms per call of `step` over `count` calls, host clock, synchronized."""
@@ -1120,7 +1136,7 @@ def training_phase(dev):
     return train_launches
 
 
-# --- phase 8: nearest-neighbour kernel -------------------------------------------
+# --- phase 8: nearest-neighbour kernel ---------------------------------------
 
 def ball_cloud(rng, k: int, center) -> np.ndarray:
     """k points on a 40 mm ball around `center` (mm) with 0.5 mm noise, the
@@ -1376,7 +1392,7 @@ def moments_timing_main(root: str) -> int:
     return 0
 
 
-# --- phase 9: reconstruction ------------------------------------------------------
+# --- phase 9: reconstruction -------------------------------------------------
 
 BALL_CENTERS = np.asarray([[30.0, 10.0, 40.0], [55.0, 35.0, 65.0]])
 BALL_RADII = np.asarray([40.0, 18.0])
@@ -1638,7 +1654,7 @@ def reconstruction_phase(dev):
     return launches
 
 
-# --- phase 10: training from a dataset ---------------------------------------------
+# --- phase 10: training from a dataset ---------------------------------------
 
 POSE_DS = "pose5"
 POSE_VIEWS = 20          # 16 training views an object: 80 samples, 10 batches
@@ -1769,10 +1785,11 @@ def fed_and_staged_ms(step, batches_fn, dev):
         len(staged)
 
 
-def dataset_training_phase(dev):
+def dataset_training_phase(dev, root=None):
     """Phase 10: `App.train_pose_estimation` at full width through both
-    phases from a written dataset; returns the launches of
-    (sym_moments_train, sym_moments) in that run."""
+    phases from a dataset written into `root` (a temporary directory unless
+    given); returns the launches of (sym_moments_train, sym_moments) in
+    that run."""
     import copy
     import shutil
     import tempfile
@@ -1786,7 +1803,9 @@ def dataset_training_phase(dev):
     from autoposeestimation_tpu_torch.train import checkpoints
     from autoposeestimation_tpu_torch.train import densefusion as dft
 
-    with tempfile.TemporaryDirectory() as root:
+    with contextlib.ExitStack() as stack:
+        if root is None:
+            root = stack.enter_context(tempfile.TemporaryDirectory())
         views = write_pose_dataset(root)
         out_dir = os.path.join(root, "DenseFusion", "trained_models", POSE_DS)
         after_1 = os.path.join(root, "after_epoch_1")
@@ -1946,7 +1965,7 @@ def dataset_training_phase(dev):
     return train_launches, fwd_launches
 
 
-# --- phase 11: serving stream ----------------------------------------------------
+# --- phase 11: serving stream ------------------------------------------------
 
 STREAM_MODEL = dict(num_points=1000, crop=320, refine_iters=2)
 STREAM_FRAMES = 24       # a timed window: the 4 ring views, cycled
@@ -2598,7 +2617,7 @@ def segmentation_training_phase(dev) -> None:
             "variants_card_vs_cpu_max_abs": variants}))
 
 
-# --- phase 13: offline labeling ----------------------------------------------------
+# --- phase 13: offline labeling ----------------------------------------------
 
 LABEL_DS = "label5"
 LABEL_VIEWS = 20         # a background and a foreground run of 20 views
@@ -3131,6 +3150,576 @@ def fpfh_card_vs_cpu(args) -> dict:
             "correspondences_differ": int((m != cm)[valid].sum())}
 
 
+# --- phase 14: host shells and experiments --------------------------------
+
+ACQ_VIEWS = 12           # generate_ring_path(12, n_via=1): 24 moves a run
+ACQ_MOVE_S = 0.4         # a move of the travelling fake robot
+ACQ_SWITCH_S = 0.15      # when its joints reach the move's target
+ACQ_ATOL_MM = 1e-3       # robot2endEff_tf against an f64 recomputation
+HAND_EYE_STATIONS = 10
+HAND_EYE_ROT_ATOL = 1e-5
+HAND_EYE_T_ATOL_MM = 0.01
+YCB_CLASSES = 21
+YCB_FRAMES = 16          # 3 objects a frame
+YCB_POINTS = 2620        # points.xyz of a YCB-Video model
+LINEMOD_OBJECTS = (1, 2)
+LINEMOD_FRAMES = 16
+LINEMOD_POINTS = 2000
+SWEEP_P_VIEWPOINTS = (1.0, 0.5)
+
+
+def rotvec_mat_f64(rv) -> np.ndarray:
+    """Rodrigues' rotation of a rotation vector, f64."""
+    rv = np.asarray(rv, np.float64)
+    angle = np.linalg.norm(rv)
+    if angle < 1e-12:
+        return np.eye(3)
+    k = rv / angle
+    kx = np.asarray([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(angle) * kx + (1 - np.cos(angle)) * kx @ kx
+
+
+def rigid_mat(rot, trans) -> np.ndarray:
+    tf = np.eye(4)
+    tf[:3, :3], tf[:3, 3] = rot, trans
+    return tf
+
+
+def travelling_robot(fk_fn):
+    """A FakeRobot whose joints reach a move's target ACQ_SWITCH_S into a
+    move of ACQ_MOVE_S. The scan loop's extra-sample thread reads the
+    start pose as the move begins and the target's while the robot still
+    moves, so it captures one extra sample a move of >= 25 mm."""
+    from autoposeestimation_tpu_torch.hardware import robot
+
+    class TravellingRobot(robot.FakeRobot):
+        @property
+        def joints_deg(self):
+            return (self._target if time.time() >= self._switch_at
+                    else self._start)
+
+        @joints_deg.setter
+        def joints_deg(self, value):
+            self._start = getattr(self, "_target", value)
+            self._target = np.asarray(value, float)
+            self._switch_at = time.time() + ACQ_SWITCH_S
+
+    return TravellingRobot(fk_fn=fk_fn, move_duration=ACQ_MOVE_S)
+
+
+def hand_eye_part(root: str) -> dict:
+    """`collect_and_calibrate` through a FakeRobot and HAND_EYE_STATIONS
+    stations, with `estimate_board_pose` patched to return the cam->board
+    pose a known end->cam X implies (no board is rendered: OpenCV, which
+    would find one, may be missing here); X recovered, written into the
+    workspace's handEye_tf.json and read back."""
+    import importlib.util
+
+    from autoposeestimation_tpu_torch.hardware import camera, hand_eye, robot
+    from autoposeestimation_tpu_torch.utils import synthetic
+
+    try:
+        hand_eye.get_board()
+        cv2_state = "present"
+    except ImportError:
+        cv2_state = "absent: get_board raises ImportError, as the JAX " \
+                    "package's would"
+    rng = np.random.default_rng(14)
+    x_true = rigid_mat(rotvec_mat_f64([0.1, -0.2, 0.3]), [20.0, -15.0, 40.0])
+    board = rigid_mat(rotvec_mat_f64([0.05, 0.02, 0.4]), [300.0, 100.0, 10.0])
+    ends = [rigid_mat(rotvec_mat_f64(rng.uniform(-0.8, 0.8, 3)),
+                      rng.uniform(-300.0, 300.0, 3))
+            for _ in range(HAND_EYE_STATIONS)]
+    ctrl = robot.FakeRobot(fk_fn=lambda j: ends[int(round(j[0])) % len(ends)])
+    cam = camera.FakeDepthCam(cfg=synthetic.SynthConfig(
+        img_h=48, img_w=64, fx=56.0, fy=56.0))
+
+    def board_pose(image, intr, board_def=None):
+        return np.linalg.inv(ctrl.robot2end() @ x_true) @ board
+
+    path = os.path.join(root, "hand_eye_calibration", "data",
+                        "handEye_tf.json")
+    targets = [np.deg2rad([i, 0, 0, 0, 0, 0]) for i in range(len(ends))]
+    t0 = time.perf_counter()
+    with mock.patch.object(hand_eye, "estimate_board_pose", board_pose):
+        out = hand_eye.collect_and_calibrate(cam, ctrl, targets,
+                                             out_path=path)
+    secs = time.perf_counter() - t0
+    x = out["end2cam"]
+    rot_err = float(np.abs(x[:3, :3] - x_true[:3, :3]).max())
+    t_err = float(np.abs(x[:3, 3] - x_true[:3, 3]).max())
+    check(out["n_stations"] == HAND_EYE_STATIONS,
+          f"hand-eye stations {out['n_stations']}")
+    check(rot_err <= HAND_EYE_ROT_ATOL, f"hand-eye rotation error {rot_err}")
+    check(t_err <= HAND_EYE_T_ATOL_MM, f"hand-eye translation error {t_err}")
+    check(np.array_equal(hand_eye.load_hand_eye(path), x),
+          "handEye_tf.json read back")
+    print(f"host shells: hand-eye X from {HAND_EYE_STATIONS} stations in "
+          f"{secs:.3f} s, rotation error {rot_err:.3e}, translation error "
+          f"{t_err:.3e} mm; cv2 {cv2_state}")
+    return {"x_true": x_true, "x": x, "s": round(secs, 4),
+            "rotation_err": rot_err, "translation_err_mm": t_err,
+            "host_modules": {m: importlib.util.find_spec(m) is not None
+                             for m in ("cv2", "yaml", "PIL", "matplotlib")}}
+
+
+def acquisition_part(root: str, x_true: np.ndarray, dev) -> dict:
+    """`App.acquire_new_data_from_object` with a 640x480 FakeDepthCam and
+    a travelling FakeRobot on `generate_ring_path(ACQ_VIEWS, n_via=1)`
+    (the object placed when the App asks for the foreground run), then
+    `fix_symmetric`, `clean_extra_data` and `App.create_labels` 'gen' on
+    the card, checked against the renders; `gt_test` of the labels
+    against the rendered masks."""
+    from autoposeestimation_tpu_torch.acquisition import maintenance, paths
+    from autoposeestimation_tpu_torch.experiments import gt_test
+    from autoposeestimation_tpu_torch.hardware import camera, robot
+    from autoposeestimation_tpu_torch.main import App
+    from autoposeestimation_tpu_torch.utils import io, synthetic
+
+    obj = pose_objects()[1]
+    cfg = synthetic.SynthConfig(img_h=480, img_w=640, fx=600.0, fy=600.0,
+                                n_viewpoints=ACQ_VIEWS)
+    cams = synthetic.ring_cameras(cfg, np.zeros(3))
+    fk = robot.ring_fk(cams, hand_eye=x_true)
+    ctrl = travelling_robot(fk)
+    cam = camera.FakeDepthCam(cfg=cfg, spheres=[],
+                              robot2cam_fn=lambda: ctrl.robot2end() @ x_true)
+    path = paths.generate_ring_path(ACQ_VIEWS, n_via=1)
+    # a capture a move that travels >= 25 mm, from home, in both runs
+    joints = [robot.HOME_JOINTS_DEG] + path["joints"]
+    moves = sum(np.linalg.norm(fk(np.asarray(b))[:3, 3]
+                               - fk(np.asarray(a))[:3, 3]) >= 25.0
+                for a, b in zip(joints, joints[1:]))
+    said = []
+
+    def print_fn(line):
+        said.append(line)
+        if line.startswith("place/turn object"):
+            cam.spheres = [obj]
+
+    app = App(root, camera_factory=lambda: cam,
+              controller_factory=lambda: ctrl, print_fn=print_fn,
+              reference_point=np.zeros(3), device=str(dev))
+    t0 = time.perf_counter()
+    n = app.acquire_new_data_from_object(obj.name, path_data=path)
+    acq_s = time.perf_counter() - t0
+    data = os.path.join(io.data_dir(root), obj.name)
+    extras = io.list_sample_ids(os.path.join(data, "extra"))
+    check(n == 2 * ACQ_VIEWS, f"acquired views {n}")
+    for run in ("background", "foreground"):
+        check(len(io.list_sample_ids(os.path.join(data, run))) == ACQ_VIEWS,
+              f"{run} views")
+    check(len(extras) == 2 * moves, f"extra samples {len(extras)}, "
+          f"{2 * moves} expected")
+    hand_eye = app._load_hand_eye()
+    worst = 0.0
+    for run in ("background", "foreground", "extra"):
+        for stem in io.list_sample_ids(os.path.join(data, run)):
+            meta = io.read_sample_meta(os.path.join(data, run,
+                                                    stem + ".meta.json"))
+            pose = meta["pose"]
+            want = rigid_mat(rotvec_mat_f64([pose["a"], pose["b"],
+                                             pose["c"]]),
+                             [pose["x"], pose["y"], pose["z"]])
+            worst = max(worst, float(np.abs(meta["robot2endEff_tf"]
+                                            - want).max()))
+            check(np.array_equal(meta["hand_eye_calibration"], hand_eye),
+                  f"{run}/{stem}: hand_eye_calibration")
+    check(worst <= ACQ_ATOL_MM, f"robot2endEff_tf against f64: {worst}")
+    fixed = maintenance.fix_symmetric(root, obj.name, symmetric=1)
+    check(fixed == n + len(extras), f"fix_symmetric rewrote {fixed}")
+    cleaned = maintenance.clean_extra_data(root, obj.name)
+    check(cleaned == {"kept": len(extras), "deleted": 0},
+          f"clean_extra_data {cleaned}")
+
+    t0 = time.perf_counter()
+    n_gen = app.create_labels([obj.name], mode="gen")
+    torch.cuda.synchronize()
+    gen_ms = 1e3 * (time.perf_counter() - t0) / max(n_gen, 1)
+    check(n_gen == ACQ_VIEWS, f"gen labels {n_gen}")
+    labels = os.path.join(io.label_dir(root), obj.name, "foreground")
+    ious = []
+    for k in range(ACQ_VIEWS):
+        truth = synthetic.render(cfg, cams[k], [obj])[2] == 0
+        label = io.read_label(os.path.join(labels, f"{k:06d}.gen.label.png"))
+        ious.append(iou(label > 0, truth))
+        io.write_png(os.path.join(labels, f"{k:06d}.gt.label.png"),
+                     truth.astype(np.uint8) * 255)
+    check(min(ious) > LABEL_IOU, f"gen label IoU, least {min(ious):.4f}")
+    samples = gt_test.select_samples_for_gt_test(root, [obj.name], p=1.0)
+    scores = gt_test.gt_test(root, [obj.name], modes=("gen",),
+                             samples=samples)["gen"]
+    check(scores["n"] == ACQ_VIEWS and scores["iou>=0.5"] == 1.0,
+          f"gt_test {scores}")
+    print(f"host shells: acquisition {n} views and {len(extras)} extra "
+          f"samples in {acq_s:.2f} s, gen labels {gen_ms:.2f} ms a sample, "
+          f"least IoU {min(ious):.4f}")
+    return {"object": obj.name, "views": n, "extra_samples": len(extras),
+            "s": round(acq_s, 3), "s_per_view": round(acq_s / n, 4),
+            "robot2end_max_err_mm": worst, "fix_symmetric": fixed,
+            "clean_extra_data": cleaned, "gen_labels": n_gen,
+            "gen_ms_per_sample": round(gen_ms, 4),
+            "gen_iou_min": round(min(ious), 4),
+            "gt_test_gen": {"iou": round(scores["iou"], 4),
+                            "iou>=0.5": scores["iou>=0.5"],
+                            "n": scores["n"]}}
+
+
+def write_ycb_tree(root: str, rng) -> tuple:
+    """A YCB-Video tree at 640x480: YCB_CLASSES models of YCB_POINTS points
+    (m), YCB_FRAMES frames of 3 objects (boxes of depth 0.83-0.97 m at
+    factor_depth 10000 on a 1.2 m table; poses at their centres), half of
+    them in videos >= 0060 (the second camera). Returns (frames,
+    classes)."""
+    import scipy.io as scio
+
+    from autoposeestimation_tpu_torch.data import legacy_datasets
+    from autoposeestimation_tpu_torch.utils import io
+
+    classes = [f"{i:03d}_object" for i in range(1, YCB_CLASSES + 1)]
+    for cls in classes:
+        pts = rng.normal(size=(YCB_POINTS, 3)) * [0.04, 0.03, 0.05]
+        os.makedirs(os.path.join(root, "models", cls))
+        np.savetxt(os.path.join(root, "models", cls, "points.xyz"), pts,
+                   fmt="%.6f")
+    frames = []
+    for f in range(YCB_FRAMES):
+        stem = f"data/{(1 if f < YCB_FRAMES // 2 else 60):04d}/{f:06d}"
+        fx, fy, ppx, ppy = (legacy_datasets.YCBPoseDataset.CAM_1 if
+                            f < YCB_FRAMES // 2 else
+                            legacy_datasets.YCBPoseDataset.CAM_2)
+        ids = rng.choice(YCB_CLASSES, 3, replace=False) + 1
+        label = np.zeros((480, 640), np.uint8)
+        depth = np.full((480, 640), 12000, np.uint16)
+        poses = []
+        for k, cid in enumerate(ids):
+            r0, c0 = 120 + 40 * k, 60 + 190 * k
+            z = rng.uniform(0.83, 0.97)
+            label[r0:r0 + 140, c0:c0 + 160] = cid
+            depth[r0:r0 + 140, c0:c0 + 160] = np.round(
+                (z + rng.normal(size=(140, 160)) * 0.002) * 10000)
+            t = [(c0 + 80 - ppx) * z / fx, (r0 + 70 - ppy) * z / fy, z]
+            poses.append(np.concatenate(
+                [rotvec_mat_f64(rng.normal(size=3)), np.asarray(t)[:, None]],
+                axis=1))
+        base = os.path.join(root, stem)
+        io.write_png(base + "-color.png",
+                     rng.integers(0, 256, (480, 640, 3)).astype(np.uint8))
+        io.write_png(base + "-depth.png", depth)
+        io.write_png(base + "-label.png", label)
+        scio.savemat(base + "-meta.mat", {
+            "cls_indexes": ids[:, None].astype(np.float64),
+            "poses": np.stack(poses, axis=2),
+            "factor_depth": np.asarray([[10000.0]])})
+        frames.append(stem)
+    return frames, classes
+
+
+def write_linemod_tree(root: str, rng) -> None:
+    """A LineMOD tree at 640x480: objects LINEMOD_OBJECTS, ascii PLY models
+    of LINEMOD_POINTS points (mm), LINEMOD_FRAMES test frames each with RGB
+    masks and gt.yml in the upstream flow style (object 2's frames list
+    object 1 too)."""
+    from autoposeestimation_tpu_torch.data import legacy_datasets
+    from autoposeestimation_tpu_torch.utils import io
+
+    fx, fy, ppx, ppy = legacy_datasets.LineModPoseDataset.INTR
+    for obj in LINEMOD_OBJECTS:
+        io.write_ply(os.path.join(root, "models", f"obj_{obj:02d}.ply"),
+                     rng.normal(size=(LINEMOD_POINTS, 3)) * [40, 30, 50])
+        seq = os.path.join(root, "data", f"{obj:02d}")
+        gt = []
+        for fr in range(LINEMOD_FRAMES):
+            r0, c0 = 150 + 3 * fr, 200 + 10 * obj
+            z = rng.uniform(750.0, 900.0)
+            depth = np.zeros((480, 640), np.uint16)
+            depth[r0:r0 + 130, c0:c0 + 150] = np.round(
+                z + rng.normal(size=(130, 150)) * 2.0)
+            mask = np.zeros((480, 640, 3), np.uint8)
+            mask[r0:r0 + 130, c0:c0 + 150] = 255
+            name = f"{fr:04d}.png"
+            io.write_png(os.path.join(seq, "rgb", name), rng.integers(
+                0, 256, (480, 640, 3)).astype(np.uint8))
+            io.write_png(os.path.join(seq, "depth", name), depth)
+            io.write_png(os.path.join(seq, "mask", name), mask)
+            gt.append(f"{fr}:")
+            for o in ((1, 2) if obj == 2 else (1,)):
+                rot = rotvec_mat_f64(rng.normal(size=3)).reshape(-1)
+                t = [(c0 + 75 - ppx) * z / fx, (r0 + 65 - ppy) * z / fy, z]
+                gt += [f"- cam_R_m2c: [{', '.join(f'{v:.8f}' for v in rot)}]",
+                       f"  cam_t_m2c: [{', '.join(f'{v:.8f}' for v in t)}]",
+                       f"  obj_bb: [{c0}, {r0}, 150, 130]",
+                       f"  obj_id: {o}"]
+        io.write_lines(os.path.join(seq, "gt.yml"), gt)
+        frames = [f"{fr:04d}" for fr in range(LINEMOD_FRAMES)]
+        io.write_lines(os.path.join(seq, "test.txt"), frames)
+        io.write_lines(os.path.join(seq, "train.txt"), frames)
+
+
+def legacy_part(root: str, dev, recorded: dict):
+    """`eval_ycb` (PoseNet and refiner of 21 objects) and `eval_linemod`
+    (15 objects) at DFConfig defaults (N=1000, M=500, batch 8, refiner
+    phase, 2 iterations) on written trees, with random weights from a seed;
+    the first batch of each and its distances kept in `recorded`. Returns
+    the report and, by name, a call that runs each evaluation again and one
+    that makes its dataset."""
+    from autoposeestimation_tpu_torch.data import legacy_datasets
+    from autoposeestimation_tpu_torch.experiments import legacy_eval
+    from autoposeestimation_tpu_torch.train import densefusion as dft
+
+    rng = np.random.default_rng(141)
+    ycb_root, lm_root = (os.path.join(root, d) for d in ("ycb", "linemod"))
+    t0 = time.perf_counter()
+    frames, classes = write_ycb_tree(ycb_root, rng)
+    write_linemod_tree(lm_root, rng)
+    write_s = time.perf_counter() - t0
+    eval_step = dft.eval_step
+
+    def recording(name):
+        def step(posenet, refiner, batch, *args):
+            dis = eval_step(posenet, refiner, batch, *args)
+            if name not in recorded:
+                recorded[name] = (posenet, refiner, batch, args, dis.clone())
+            return dis
+        return step
+
+    out = {"write_s": round(write_s, 3)}
+    states = {}
+    runs = (("ycb", YCB_CLASSES, lambda st: legacy_eval.eval_ycb(
+                st, ycb_root, frames, classes,
+                out_path=os.path.join(root, "ycb.json"))),
+            ("linemod", 15, lambda st: legacy_eval.eval_linemod(
+                st, lm_root, list(LINEMOD_OBJECTS),
+                out_path=os.path.join(root, "linemod.json"))))
+    for name, num_obj, run in runs:
+        state = dft.create_trainer(num_obj, dft.DFConfig(), seed=14,
+                                   device=dev)
+        state.refine_start = True
+        with mock.patch.object(dft, "eval_step", recording(name)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run(state)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        n = (res["overall"]["n"] if "overall" in res
+             else sum(v["hit"] + v["miss"] for v in res.values()))
+        batches = -(-n // 8)
+        check(n == (YCB_FRAMES if name == "ycb"
+                    else LINEMOD_FRAMES * len(LINEMOD_OBJECTS)),
+              f"{name}: evaluated samples {n}")
+        for cls, v in res.items():
+            if cls != "overall" and v["hit"] + v["miss"]:
+                check(np.isfinite(v["dis"]), f"{name} {cls}: dis {v['dis']}")
+        out[name] = {"samples": n, "batches": batches,
+                     "ms_per_batch": round(1e3 * secs / batches, 4),
+                     "samples_per_s": round(n / secs, 3)}
+        states[name] = state
+    sizes = dict(num_pt=1000, num_pt_mesh=500)      # the evaluations' own
+    datasets = {
+        "ycb": lambda: legacy_datasets.YCBPoseDataset(
+            ycb_root, frames, classes, **sizes),
+        "linemod": lambda: legacy_datasets.LineModPoseDataset(
+            lm_root, list(LINEMOD_OBJECTS), mode="test", **sizes)}
+    return out, {name: functools.partial(run, states[name])
+                 for name, _, run in runs}, datasets
+
+
+def legacy_kernel_vs_plain(recorded: dict) -> float:
+    """Each recorded batch again with the plain moments: `dis` within
+    DIS_ATOL, and the same hits but within DIS_ATOL of a threshold (YCB's
+    2 cm; LineMOD's 10 % of a diameter, none of which is near 2 cm)."""
+    from autoposeestimation_tpu_torch.ops import addloss
+    from autoposeestimation_tpu_torch.train import densefusion as dft
+
+    worst = 0.0
+    for name, (posenet, refiner, batch, args, got) in recorded.items():
+        with mock.patch.object(addloss, "moments_cuda", addloss.moments_plain):
+            want = dft.eval_step(posenet, refiner, batch, *args)
+        err = (got - want).abs().max().item()
+        worst = max(worst, err)
+        check(err <= DIS_ATOL, f"{name}: kernel vs plain dis error {err}")
+        if name == "ycb":
+            near = (want - 0.02).abs() <= DIS_ATOL
+            check(torch.equal((got < 0.02) | near, (want < 0.02) | near),
+                  f"{name}: hits, kernel vs plain")
+    return worst
+
+
+def sweeps_part(root: str, pose_root: str, dev) -> dict:
+    """`train_pose_estimation_exp` over p_viewpoints SWEEP_P_VIEWPOINTS x
+    label mode 'gen', one epoch a run at DFConfig defaults (bf16 sym), on
+    phase 10's dataset; then `eval_exp` over the runs and
+    `plot_pose_exp_results`; each run's pose_model.npz read back."""
+    from autoposeestimation_tpu_torch import weights
+    from autoposeestimation_tpu_torch.experiments import sweeps
+    from autoposeestimation_tpu_torch.models.densefusion import PoseNet
+    from autoposeestimation_tpu_torch.train import checkpoints
+    from autoposeestimation_tpu_torch.train import densefusion as dft
+
+    runs_dir = os.path.join(root, "pose_runs")
+    cfg = dft.DFConfig()
+    t0 = time.perf_counter()
+    stats = sweeps.train_pose_estimation_exp(
+        pose_root, POSE_DS, p_viewpoints_grid=SWEEP_P_VIEWPOINTS,
+        label_modes=("gen",), epochs=2, cfg=cfg, out_base=runs_dir,
+        device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results = sweeps.eval_exp(pose_root, POSE_DS, runs_dir=runs_dir,
+                              exp_name="phase14", cfg=cfg, device=dev)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    best = sweeps.plot_pose_exp_results(runs_dir)
+    names = [r["name"] for r in stats["runs"]]
+    check(len(names) == len(SWEEP_P_VIEWPOINTS), f"sweep runs {names}")
+    check(os.path.exists(os.path.join(runs_dir, "sweep_stats.json")),
+          "sweep_stats.json")
+    check(os.path.exists(os.path.join(runs_dir,
+                                      "phase14_exp_eval_results.json")),
+          "phase14_exp_eval_results.json")
+    check(sorted(results) == sorted(names) == sorted(best),
+          f"eval_exp runs {sorted(results)}, curves {sorted(best)}")
+    for name in names:
+        check(np.isfinite(results[name]["overall"]["p"])
+              and results[name]["overall"]["n"] > 0, f"{name}: eval_exp")
+        check(best[name]["n_epochs"] == 1, f"{name}: curves {best[name]}")
+        PoseNet(5).load_state_dict(weights.posenet_state_dict(
+            checkpoints.load_checkpoint(os.path.join(
+                runs_dir, name, "pose_model"))["variables"]))
+    return {"runs": {r["name"]: {"s": round(r["seconds"], 3),
+                                 "best_test": round(r["best_test"], 6)}
+                     for r in stats["runs"]},
+            "train_s": round(train_s, 3), "eval_exp_s": round(eval_s, 3),
+            "eval_exp_overall": {k: v["overall"] for k, v in results.items()}}
+
+
+def menu_part(root: str, dev) -> dict:
+    """`App.main` with a scripted `input_fn`: visualise -> segmentation
+    masks -> the acquired object; acquire new data from object with no
+    path (the action fails, the menu goes on); quit. The default show
+    draws through a recording matplotlib stand-in."""
+    import types
+
+    from autoposeestimation_tpu_torch.hardware import camera, robot
+    from autoposeestimation_tpu_torch.main import App
+    from autoposeestimation_tpu_torch.utils import synthetic
+
+    shown, said = [], []
+    plt = types.SimpleNamespace(imshow=shown.append, pause=lambda s: None)
+    script = iter(["7", "0", "0", "0", "menu_object", "10"])
+    app = App(root, camera_factory=lambda: camera.FakeDepthCam(
+        cfg=synthetic.SynthConfig(img_h=48, img_w=64, fx=56.0, fy=56.0)),
+        controller_factory=robot.FakeRobot, input_fn=lambda q: next(script),
+        print_fn=said.append, device=str(dev))
+    t0 = time.perf_counter()
+    with mock.patch.dict(sys.modules, {
+            "matplotlib": types.SimpleNamespace(pyplot=plt),
+            "matplotlib.pyplot": plt}):
+        app.main()
+    secs = time.perf_counter() - t0
+    failed = [line for line in said if line.startswith("action failed")]
+    check(len(shown) == ACQ_VIEWS, f"menu: {len(shown)} frames shown")
+    check(len(failed) == 1 and said.count("Select action:") == 3,
+          f"menu: {failed}, {said.count('Select action:')} menus")
+    print(f"host shells: the menu showed {len(shown)} frames, printed "
+          f"{len(said)} lines; acquire without a path: {failed[0]}")
+    return {"frames_shown": len(shown), "lines": len(said),
+            "failed": failed[0], "s": round(secs, 3)}
+
+
+def host_shells_phase(dev, pose_root=None):
+    """Phase 14: the host shells and the experiments through their entry
+    points on the card: hand-eye calibration, a scan's acquisition,
+    maintenance and labels, `gt_test`, the YCB-Video and LineMOD ADD(-S)
+    evaluations at full width, the training sweeps and their evaluation on
+    phase 10's dataset (written into `pose_root`, or here when None), and
+    the App's menu. Returns the launches of (sym_moments,
+    sym_moments_train) in that run."""
+    import tempfile
+
+    from autoposeestimation_tpu_torch.ops import addloss
+    from autoposeestimation_tpu_torch.train import densefusion as dft
+
+    report = {"card": nvidia_smi("name,power.limit")}
+    recorded = {}
+    with contextlib.ExitStack() as stack:
+        tmp = stack.enter_context(tempfile.TemporaryDirectory())
+        if pose_root is None:
+            pose_root = os.path.join(tmp, "pose")
+            write_pose_dataset(pose_root)
+        workspace = os.path.join(tmp, "workspace")
+
+        # the main path: counts from 0 just before, read just after
+        addloss.moments_cuda.launches = 0
+        addloss.moments_train_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hand_eye = hand_eye_part(workspace)
+        report["acquisition"] = acquisition_part(workspace,
+                                                 hand_eye.pop("x_true"), dev)
+        hand_eye.pop("x")
+        report["hand_eye"] = hand_eye
+        fwd0 = addloss.moments_cuda.launches
+        legacy, reruns, datasets = legacy_part(os.path.join(tmp, "legacy"),
+                                               dev, recorded)
+        fwd_legacy = addloss.moments_cuda.launches - fwd0
+        fwd0 = addloss.moments_cuda.launches
+        report["sweeps"] = sweeps_part(tmp, pose_root, dev)
+        report["menu"] = menu_part(workspace, dev)
+        torch.cuda.synchronize()
+        report["main_path_s"] = round(time.perf_counter() - t0, 3)
+        fwd = addloss.moments_cuda.launches
+        train = addloss.moments_train_cuda.launches
+        # one a batch, in the estimator's loss
+        check(fwd_legacy == legacy["ycb"]["batches"]
+              + legacy["linemod"]["batches"],
+              f"legacy sym_moments launches {fwd_legacy}")
+        check(fwd - fwd0 > 0, "sweeps: sym_moments not launched")
+        check(train > 0, "sweeps: sym_moments_train not launched")
+        report["launches"] = {"sym_moments": fwd, "sym_moments_legacy":
+                              fwd_legacy, "sym_moments_sweeps": fwd - fwd0,
+                              "sym_moments_train": train}
+
+        # outside the main path: the plain moments on the recorded
+        # batches; each evaluation again, warm, and where eval_ycb's time goes
+        report["legacy_kernel_vs_plain_max_dis_err"] = \
+            legacy_kernel_vs_plain(recorded)
+        for name, rerun in reruns.items():
+            t0 = time.perf_counter()
+            rerun()
+            torch.cuda.synchronize()
+            legacy[name]["warm_ms_per_batch"] = round(
+                1e3 * (time.perf_counter() - t0) / legacy[name]["batches"],
+                4)
+        ycb = legacy["ycb"]
+        seen = profile(reruns["ycb"], "legacy eval_ycb, per batch",
+                       ycb["batches"], ycb["warm_ms_per_batch"],
+                       ("sym_moments",))
+        if seen:
+            ycb["device_ms_per_batch"] = round(seen[0], 4)
+            ycb["kernels_per_batch"] = round(seen[1], 1)
+            ycb["busy_share"] = round(seen[0] / ycb["warm_ms_per_batch"], 4)
+        # an evaluation batch split: the dataset a sample on one thread, the
+        # Loader's rate, the step on a batch staged on the card
+        for name, make in datasets.items():
+            ds = make()
+            t0 = time.perf_counter()
+            for i in range(len(ds)):
+                ds[i]
+            legacy[name]["sample_ms"] = round(
+                1e3 * (time.perf_counter() - t0) / len(ds), 4)
+            legacy[name]["loader_samples_per_s"] = {
+                str(w): round(loader_rate(ds, w, len(ds)), 3)
+                for w in (0, 4)}
+            posenet, refiner, batch, args, _ = recorded[name]
+            legacy[name]["staged_step_ms"] = round(timed_steps(
+                lambda: dft.eval_step(posenet, refiner, batch, *args), 8), 4)
+        report["legacy"] = legacy
+    print("host shells and experiments " + json.dumps(report))
+    return fwd, train
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3143,6 +3732,8 @@ def main() -> int:
         return moments_timing_main(sys.argv[2])
     check(len(sys.argv) == 1, f"usage: {sys.argv[0]} [--nn-timing ROOT | "
           f"--train-timing ROOT | --moments-timing ROOT]")
+    import tempfile
+
     from autoposeestimation_tpu_torch.ops import kernel_build
 
     dev = torch.device("cuda")
@@ -3166,23 +3757,28 @@ def main() -> int:
     train_kernel["launches"] = training_phase(dev)
     nn_kernel = nn_phase(dev, clock_mhz)
     nn_calls = {"reconstruction": reconstruction_phase(dev)}
-    # training from a dataset runs both moments kernels: their launches
-    # there join those of phases 5 and 7
-    ds_train, ds_fwd = dataset_training_phase(dev)
-    serving_stream_phase(dev)
-    segmentation_training_phase(dev)
-    nn_calls["offline_labeling"] = labeling_phase(dev)
+    # training from a dataset and the sweeps of phase 14 (on the dataset
+    # phase 10 writes) run both moments kernels: their launches there join
+    # those of phases 5 and 7
+    with tempfile.TemporaryDirectory() as pose_root:
+        ds_train, ds_fwd = dataset_training_phase(dev, pose_root)
+        serving_stream_phase(dev)
+        segmentation_training_phase(dev)
+        nn_calls["offline_labeling"] = labeling_phase(dev)
+        shells_fwd, shells_train = host_shells_phase(dev, pose_root)
     # each call is two kernels, a scan and its merge
     nn_kernel["calls_by_phase"] = nn_calls
     nn_kernel["calls"] = sum(nn_calls.values())
     nn_kernel["launches"] = 2 * nn_kernel["calls"]
     nn_kernel["kernels_per_call"] = 2
     kernel["launches_by_phase"] = {"evaluation": kernel["launches"],
-                                   "dataset_training": ds_fwd}
-    kernel["launches"] += ds_fwd
+                                   "dataset_training": ds_fwd,
+                                   "host_shells": shells_fwd}
+    kernel["launches"] += ds_fwd + shells_fwd
     train_kernel["launches_by_phase"] = {"training": train_kernel["launches"],
-                                         "dataset_training": ds_train}
-    train_kernel["launches"] += ds_train
+                                         "dataset_training": ds_train,
+                                         "host_shells": shells_train}
+    train_kernel["launches"] += ds_train + shells_train
     print(json.dumps({"kernels": [kernel, train_kernel, nn_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

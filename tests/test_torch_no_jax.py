@@ -34,28 +34,31 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     count, loaded = res.stdout.split(" ", 1)
-    assert int(count) >= 58
+    assert int(count) >= 67
     assert loaded.strip() == "[]"
 
 
 def test_port_imports_without_pil_or_matplotlib():
-    """As on the card's machine, which has neither Pillow, matplotlib nor
-    the RealSense SDK: every port module imports with them blocked too, and
-    none loads them."""
+    """The port needs neither Pillow, matplotlib, the RealSense SDK,
+    OpenCV nor PyYAML: every port module imports with them blocked too,
+    and none loads them."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     probe = PROBE.replace(
         '"autoposeestimation_tpu"):',
-        '"autoposeestimation_tpu", "PIL", "matplotlib", "pyrealsense2"):'
+        '"autoposeestimation_tpu", "PIL", "matplotlib", "pyrealsense2",'
+        ' "cv2", "yaml"):'
     ).replace(
         'or k == "autoposeestimation_tpu"',
         'or k in ("autoposeestimation_tpu", "PIL", "matplotlib")'
-        ' or k.split(".")[0] in ("PIL", "matplotlib", "pyrealsense2")')
+        ' or k.split(".")[0] in ("PIL", "matplotlib", "pyrealsense2",'
+        ' "cv2", "yaml")')
     assert probe.count("PIL") == 3 and probe.count("pyrealsense2") == 2
+    assert probe.count("cv2") == probe.count("yaml") == 2
     res = subprocess.run([sys.executable, "-c", probe], cwd=root,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     count, loaded = res.stdout.split(" ", 1)
-    assert int(count) >= 58
+    assert int(count) >= 67
     assert loaded.strip() == "[]"
 
 
