@@ -35,6 +35,7 @@ import torch
 from ..models.common import normalize_imagenet
 from ..ops import bg_subtraction as bgs
 from ..ops import cca as cca_ops
+from ..parallel import mesh as pmesh
 from ..reconstruction import create_pointcloud as rec
 from ..utils import io
 from ..utils.device import resolve_device
@@ -261,25 +262,23 @@ def create_pose_data(root: str, classes: Sequence[str], ds_name: str,
     (reconstruction) and Phase C (pose labels) on `device` (cuda unless
     given), at the reference's settings. Returns {"stats": Phase A's stats,
     "times": {"seg": [s], "pc": [s per class], "pose": [s per class]}}.
-    `data_parallel`: 'auto' and 'off' run on one device; 'on' (the views
-    sharded over a mesh) is not ported."""
-    if data_parallel == "on":
-        raise NotImplementedError(
-            "data_parallel='on' (views sharded over a mesh) is not ported: "
-            "ROADMAP.md Queue 1, item 8")
-    if data_parallel not in ("auto", "off"):
-        raise ValueError(f"data_parallel must be 'auto', 'on' or 'off', "
-                         f"not {data_parallel!r}")
+    `data_parallel` ('auto', 'on', 'off') goes through `parallel/mesh.py::
+    auto_mesh`: with a mesh, every rank calls this, Phase B's per-view
+    surfaces are split over its 'data' ranks (`load_point_cloud(mesh=)`),
+    and Phases A and C, which write files, run on rank 0."""
     dev = resolve_device(device)
+    mesh = pmesh.auto_mesh(data_parallel, device=dev)
+    writer = pmesh.is_writer(mesh)
     mode = "new_pred" if new_pred else "pred"
     times = {"seg": [], "pc": [], "pose": []}
     stats: Dict = {}
 
     t0 = time.time()
-    if new_pred:
+    if new_pred and writer:
         stats = create_new_pred_labels(root, classes, seg_model,
                                        reference_point, get_extra_labels,
                                        progress=progress)
+    pmesh.barrier(mesh)
     times["seg"].append(time.time() - t0)
 
     for cls in classes:
@@ -289,13 +288,15 @@ def create_pose_data(root: str, classes: Sequence[str], ds_name: str,
             mode=mode, n_viewpoints=n_viewpoints, min_friends=20, min_dist=5,
             nb_neighbors=20, threshold=10, voxel_size=2, voxel_size_out=5,
             global_regression=global_regression, icp_point2point=True,
-            icp_point2plane=False, device=dev)
+            icp_point2plane=False, mesh=mesh, device=dev)
         times["pc"].append(time.time() - t1)
 
         t2 = time.time()
-        pose_labels.create_pose_label(root, cls, with_extra=get_extra_labels,
-                                      global_regression=global_regression,
-                                      device=dev)
+        if writer:
+            pose_labels.create_pose_label(
+                root, cls, with_extra=get_extra_labels,
+                global_regression=global_regression, device=dev)
+        pmesh.barrier(mesh)
         times["pose"].append(time.time() - t2)
 
     return {"stats": stats, "times": times}

@@ -1,13 +1,17 @@
 """Shared model utilities (port of `autoposeestimation_tpu/models/common.py`)
 plus the layers that carry flax's `dtype=` meaning: parameters stay f32 and
 the compute runs in `dtype`, with inputs and parameters cast on the way in.
-Tensors are NCHW."""
+Tensors are NCHW. The parallel pieces of `parallel/mesh.py` live here too:
+BatchNorm's statistics over a data group and the column-parallel
+`Linear`."""
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 from torch import nn
 
@@ -101,6 +105,117 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient summed over the 'model' group
+    backward (each rank's slice of the output gives part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """All-gather of the last dimension over the 'model' group forward;
+    backward keeps this rank's slice (every rank holds the same gradient
+    of the gathered output)."""
+
+    @staticmethod
+    def forward(ctx, y, group, size, index):
+        ctx.index, ctx.width = index, y.shape[-1]
+        parts = [torch.empty_like(y) for _ in range(size)]
+        dist.all_gather(parts, y.contiguous(), group=group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo = ctx.index * ctx.width
+        return grad[..., lo:lo + ctx.width].contiguous(), None, None, None
+
+
+class ColumnParallelLinear(Linear):
+    """A `Linear` whose output features are split over a 'model' group of
+    `size` ranks, Megatron's column-parallel layer: rank `index` keeps rows
+    [index * out / size, (index + 1) * out / size) of the weight and bias,
+    multiplies its slice and all-gathers the outputs, so that every rank
+    returns the full output. `out_features` stays the logical width.
+    `state_dict()` holds this rank's rows; `full_weight()` /
+    `full_bias()` gather them back (a collective over the group)."""
+
+    @classmethod
+    def from_linear(cls, lin: Linear, group, size: int, index: int,
+                    optimizer: Optional[torch.optim.Optimizer] = None
+                    ) -> "ColumnParallelLinear":
+        if lin.out_features % size:
+            raise ValueError(f"{lin.out_features} output features do not "
+                             f"split over {size} ranks")
+        per = lin.out_features // size
+        rows = slice(index * per, (index + 1) * per)
+        layer = cls.__new__(cls)
+        nn.Module.__init__(layer)
+        layer.in_features, layer.out_features = (lin.in_features,
+                                                 lin.out_features)
+        layer.compute_dtype = lin.compute_dtype
+        layer.group, layer.size, layer.index = group, size, index
+        for name in ("weight", "bias"):
+            p = getattr(lin, name)
+            p.data = p.data[rows].clone()
+            state = {} if optimizer is None else optimizer.state.get(p, {})
+            for key, val in state.items():
+                if torch.is_tensor(val) and val.dim() >= 1:
+                    state[key] = val[rows].clone()
+            p.tp_shard = layer
+            setattr(layer, name, p)
+        return layer
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        x = _CopyToModel.apply(x.to(dt), self.group)
+        y = F.linear(x, self.weight.to(dt), self.bias.to(dt))
+        return _GatherFromModel.apply(y, self.group, self.size, self.index)
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a (weight- or bias-shaped) tensor -> the
+        full tensor, from every rank of the group."""
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t.detach().contiguous(), group=self.group)
+        return torch.cat(parts)
+
+    def full_weight(self) -> torch.Tensor:
+        return self.gather_rows(self.weight)
+
+    def full_bias(self) -> torch.Tensor:
+        return self.gather_rows(self.bias)
+
+
+def full_tensor(param: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """`t` (the parameter or a tensor shaped like it) at the parameter's
+    logical shape: gathered over the 'model' group when the parameter is
+    a column-parallel shard, else `t` itself."""
+    layer = getattr(param, "tp_shard", None)
+    return t if layer is None else layer.gather_rows(t)
+
+
+def full_state_dict(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """`module.state_dict()` with every column-parallel weight and bias
+    gathered back to its full rows: the same keys and shapes as the
+    unsharded module. A collective over each sharded layer's group, so
+    every rank of it must call it."""
+    state = module.state_dict()
+    for name, sub in module.named_modules():
+        if isinstance(sub, ColumnParallelLinear):
+            prefix = f"{name}." if name else ""
+            state[prefix + "weight"] = sub.full_weight()
+            state[prefix + "bias"] = sub.full_bias()
+    return state
+
+
 class ConvTranspose2d(nn.ConvTranspose2d):
     """ConvTranspose2d computing in `dtype` over f32 parameters. flax's
     `nn.ConvTranspose((4, 4), strides=2, padding="SAME")` is
@@ -131,7 +246,14 @@ class BatchNorm2d(nn.Module):
     the biased variance E[x^2] - E[x]^2 clipped at 0, differentiated by
     autograd; the running statistics then move to 0.9 * running + 0.1 *
     batch, the biased variance included (`F.batch_norm` would store the
-    unbiased one)."""
+    unbiased one).
+
+    With a `sync_group` (set by `sync_batchnorm`) the train-mode statistics
+    are the global batch's over the ranks of that group: the per-channel
+    sums, sums of squares and counts are all-reduced, differentiably, so
+    each rank's gradient carries every rank's share and the running
+    statistics move alike everywhere (flax's under the JAX package's data
+    mesh)."""
 
     momentum = 0.9
 
@@ -142,13 +264,24 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
         self.compute_dtype = dtype
+        self.sync_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.float32)
-        if self.training:
+        if self.training and self.sync_group is not None:
+            c = xf.shape[1]
+            count = xf.new_full((1,), float(xf.numel() // c))
+            sums = dist_fn.all_reduce(torch.cat(
+                [xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]),
+                group=self.sync_group)
+            mean = sums[:c] / sums[2 * c]
+            var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean,
+                              min=0.0)
+        elif self.training:
             mean = xf.mean((0, 2, 3))
             var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean,
                               min=0.0)
+        if self.training:
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.copy_(m * self.running_mean
@@ -160,6 +293,15 @@ class BatchNorm2d(nn.Module):
         y = ((xf - mean[:, None, None]) * mul[:, None, None]
              + self.bias[:, None, None])
         return y.to(self.compute_dtype)
+
+
+def sync_batchnorm(module: nn.Module, group) -> nn.Module:
+    """Make every `BatchNorm2d` of `module` take its train-mode statistics
+    over the ranks of `group` (None: this rank's batch alone)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.sync_group = group
+    return module
 
 
 class PReLU(nn.Module):

@@ -110,7 +110,8 @@ class PoseNet(nn.Module):
     """(img (B, 3, S, S) normalized crops, cloud (B, N, 3), choose (B, N),
     obj_idx (B,)) -> (pred_r (B, N, 4), pred_t (B, N, 3), pred_c (B, N, 1),
     emb (B, N, 32)). `train=True` turns on the PSPNet's dropout, whose
-    masks come from `generator`."""
+    masks come from `generator`; `rows` places a data-parallel block in
+    its batch (`pspnet.dropout`)."""
 
     def __init__(self, num_obj: int, dtype: torch.dtype = torch.float32,
                  emb_stride: int = 1, emb_resize_late: bool = False):
@@ -124,9 +125,10 @@ class PoseNet(nn.Module):
         self.head_c = PoseHead(1, num_obj, dtype)
 
     def forward(self, img, cloud, choose, obj_idx, train: bool = False,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[Tuple[int, int]] = None
                 ) -> Tuple[torch.Tensor, ...]:
-        emb_map = self.cnn(img, train=train, generator=generator)
+        emb_map = self.cnn(img, train=train, generator=generator, rows=rows)
         if self.emb_stride > 1:
             emb = gather_embeddings_bilinear(emb_map, choose, img.shape[-1])
         else:

@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed.nn.functional as dist_fn
 
 from ..ops import addloss
 from ..utils import transforms as T
@@ -154,12 +155,14 @@ def add_metric(quat, trans, target, model_points, is_sym,
 # ---------------------------------------------------------------------------
 
 def jaccard_loss(labels: torch.Tensor, logits: torch.Tensor,
-                 eps: float = 1e-7, per_column: bool = False
-                 ) -> torch.Tensor:
+                 eps: float = 1e-7, per_column: bool = False,
+                 group=None) -> torch.Tensor:
     """Soft-jaccard loss over the classes present in the batch; labels
     (B, H, W) int, logits (B, C, H, W). `per_column=True` is the
     reference's exact reduction, which sums over batch and height only and
-    averages the per-(class, image column) IoUs."""
+    averages the per-(class, image column) IoUs. With a process `group`
+    the batch is the union of its ranks' rows: the sums are all-reduced,
+    differentiably, and every rank returns the global batch's loss."""
     c = logits.shape[1]
     probas = torch.softmax(logits, dim=1)
     classes = torch.arange(c, device=logits.device)
@@ -167,9 +170,19 @@ def jaccard_loss(labels: torch.Tensor, logits: torch.Tensor,
         probas.dtype)
     dims = (0, 2) if per_column else (0, 2, 3)
     intersection = (probas * onehot).sum(dims)      # (C, W) or (C,)
-    union = (probas + onehot).sum(dims) - intersection
+    total = (probas + onehot).sum(dims)
+    labelled = onehot.sum((0, 2, 3))
+    if group is not None:
+        n = intersection.numel()
+        sums = dist_fn.all_reduce(torch.cat(
+            [intersection.reshape(-1), total.reshape(-1), labelled]),
+            group=group)
+        intersection = sums[:n].reshape(intersection.shape)
+        total = sums[n:2 * n].reshape(total.shape)
+        labelled = sums[2 * n:]
+    union = total - intersection
     per_class = intersection / (union + eps)
-    present = onehot.sum((0, 2, 3)) > 0
+    present = labelled > 0
     n_present = present.to(per_class.dtype).sum()
     if per_column:
         masked = torch.where(present[:, None], per_class, 0.0)

@@ -8,7 +8,7 @@ elementwise like flax's, with its masks drawn from an explicit
 `torch.Generator`."""
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -18,15 +18,20 @@ from .common import Conv2d, PReLU, adaptive_avg_pool, resize_bilinear
 from .resnet import DilatedResNetNoBN
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: torch.Generator) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """flax `nn.Dropout` in training: each element kept with probability
     1 - rate and scaled by 1 / (1 - rate); rate 0 is the identity and draws
-    nothing."""
+    nothing. `rows` = (n, lo) says that `x` holds rows [lo, lo + len(x))
+    of a batch of n split over data-parallel ranks: the mask is drawn for
+    all n rows and this block kept, so every rank's generator moves alike
+    and the masks are a single device's."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    n, lo = rows if rows is not None else (x.shape[0], 0)
+    mask = torch.rand((n,) + tuple(x.shape[1:]), generator=generator,
+                      device=x.device)[lo:lo + x.shape[0]] < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -75,7 +80,8 @@ class PSPNet(nn.Module):
     parameter set is the same for every stride); `resize_late` puts the
     remaining resizes at the last decoder stages instead of the first.
     `train=True` applies dropout after the PSP module and after `up_1` and
-    `up_2` at `dropout_rates` (JAX pspnet.py:120-124)."""
+    `up_2` at `dropout_rates` (JAX pspnet.py:120-124), over a
+    data-parallel batch's `rows` (see `dropout`)."""
 
     def __init__(self, embed_dim: int = 32, dtype: torch.dtype = torch.float32,
                  emb_stride: int = 1, resize_late: bool = False):
@@ -97,13 +103,14 @@ class PSPNet(nn.Module):
         self.dropout_rates = (0.3, 0.15, 0.15)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         if train and generator is None:
             raise ValueError("train=True needs a generator for dropout")
         p = self.psp(self.feats(x.to(self.dtype)))
         for rate, up in zip(self.dropout_rates,
                             (self.up_1, self.up_2, self.up_3)):
             if train:
-                p = dropout(p, rate, generator)
+                p = dropout(p, rate, generator, rows)
             p = up(p)
         return F.log_softmax(self.final(p.to(torch.float32)), dim=1)

@@ -1,8 +1,14 @@
 """U-Net with a ResNet34 encoder (port of `autoposeestimation_tpu/models/
-unet.py` at `out_stride=1`): five decoder blocks (256, 128, 64, 32, 16),
-each nearest-2x upsample, crop to the skip, concat, two conv-BN-ReLU; a 3x3
-f32 head. NCHW in, NCHW logits out. The BatchNorms follow the module's
-`train()` / `eval()` mode."""
+unet.py`): five decoder blocks (256, 128, 64, 32, 16), each nearest-2x
+upsample, crop to the skip, concat, two conv-BN-ReLU; a 3x3 f32 head. NCHW
+in, NCHW logits out. The BatchNorms follow the module's `train()` /
+`eval()` mode.
+
+`out_stride` s in {1, 2, 4, 8} stops the decoder's upsampling once its
+lattice reaches 1/s: a block whose nominal output would be finer stays on
+the 1/s lattice, its encoder skip subsampled to it, and the head emits
+logits at (ceil(H/s), ceil(W/s)). The parameters are the same at every
+stride, so trained weights serve at any of them."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -25,10 +31,16 @@ class DecoderBlock(nn.Module):
                             dtype=dtype)
         self.bn2 = BatchNorm2d(features, dtype)
 
-    def forward(self, x: torch.Tensor,
-                skip: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = upsample_nearest_2x(x)
+    def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None,
+                upsample: bool = True, pool_skip: int = 1) -> torch.Tensor:
+        if upsample:
+            x = upsample_nearest_2x(x)
         if skip is not None:
+            if pool_skip > 1:
+                # the block stays on x's coarser lattice: strided nearest
+                # subsampling gives the encoder's ceil-mode sizes exactly,
+                # len(range(0, ceil(H/2), 2)) == ceil(H/4)
+                skip = skip[..., ::pool_skip, ::pool_skip]
             # ceil-mode stride-2 encoders overshoot on odd dims (15 -> 8 ->
             # 16): crop to the skip
             x = x[:, :, :skip.shape[2], :skip.shape[3]]
@@ -39,13 +51,18 @@ class DecoderBlock(nn.Module):
 
 class UNet(nn.Module):
     """Input normalized NCHW f32 with `in_ch` channels (7 for the
-    background-subtraction model); output f32 logits (B, classes, H, W)."""
+    background-subtraction model); output f32 logits (B, classes,
+    ceil(H / out_stride), ceil(W / out_stride))."""
 
     def __init__(self, classes: int,
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
                  encoder_stages: Sequence[int] = (3, 4, 6, 3),
-                 dtype: torch.dtype = torch.float32, in_ch: int = 3):
+                 dtype: torch.dtype = torch.float32, in_ch: int = 3,
+                 out_stride: int = 1):
         super().__init__()
+        if out_stride not in (1, 2, 4, 8):
+            raise ValueError(f"out_stride must be 1, 2, 4 or 8: {out_stride}")
+        self.out_stride = out_stride
         self.encoder = ResNetEncoder(encoder_stages, dtype, in_ch)
         skip_ch = (256, 128, 64, 64, 0)
         blocks, in_ch = [], 512
@@ -59,6 +76,12 @@ class UNet(nn.Module):
         feats = self.encoder(x)
         skips = [feats[3], feats[2], feats[1], feats[0], None]
         y = feats[4]
-        for block, skip in zip(self.decoder, skips):
-            y = block(y, skip)
+        # each block's nominal output lattice
+        for block, skip, nominal in zip(self.decoder, skips,
+                                        (16, 8, 4, 2, 1)):
+            if nominal >= self.out_stride:
+                y = block(y, skip)
+            else:
+                y = block(y, skip, upsample=False,
+                          pool_skip=self.out_stride // nominal)
         return self.head(y.to(torch.float32))

@@ -14,6 +14,13 @@ order. The random draws of the point selection come from a
 `torch.Generator`, or are given as `uniforms` (K, num_points) per frame in
 [0, 1) so that a caller can reproduce another implementation's draws
 exactly. `get_robot2object` moves camera-frame poses into the robot frame.
+
+With `build_models(seg_out_stride=s)` (s in 2, 4, 8) the U-Net's decoder
+stops on the 1/s lattice (`models/unet.py`): the class planes and the CCA
+run there, with the CCA's pooling divided by s and the found-gate's pixel
+count multiplied by s^2, and each selected component is upsampled to the
+frame before the crop, so the pose stage sees full-resolution masks; the
+returned argmax is upsampled alike.
 """
 from __future__ import annotations
 
@@ -75,28 +82,54 @@ def _unpack_masks(packed: np.ndarray) -> np.ndarray:
 
 
 def _segment(seg_model: UNet, image: torch.Tensor):
-    """image uint8 (3, H, W) -> (probs (C, H, W), argmax (H, W))."""
+    """image uint8 (3, H, W) -> (probs (C, h, w), argmax (h, w)) on the
+    U-Net's output lattice, (H, W) divided by its `out_stride`, rounded
+    up."""
     logits = seg_model(normalize_imagenet(image)[None])[0]
     probs = torch.softmax(logits, dim=0)
     return probs, torch.argmax(probs, dim=0)
 
 
+def _upsample_plane(p: torch.Tensor, s: int, hw) -> torch.Tensor:
+    """Nearest-upsample the last two axes by s and fit them to hw: the
+    ceil-mode overshoot is cropped, a shortfall padded with zeros (False).
+    The exact inverse of the lattice reduction for block-constant
+    planes."""
+    if s == 1:
+        return p
+    p = p.repeat_interleave(s, dim=-2).repeat_interleave(s, dim=-1)
+    h, w = hw
+    if p.shape[-2] >= h and p.shape[-1] >= w:
+        return p[..., :h, :w]
+    out = p.new_zeros(p.shape[:-2] + (h, w))
+    hh, ww = min(h, p.shape[-2]), min(w, p.shape[-1])
+    out[..., :hh, :ww] = p[..., :hh, :ww]
+    return out
+
+
 def _class_mask(score_plane, pred_arg, cls_id, min_count: int = 100,
                 cca_scale: int = 1, cca_sweeps: int = 0,
-                cca_rule: str = "sum"):
+                cca_rule: str = "sum", seg_stride: int = 1, full_hw=None):
     """Best connected component of class `cls_id` (1-based; a tensor of
     shape S for planes (S, H, W)) scored on its probability plane. Returns
     (component (S, H, W), found (S,), converged); `found` also needs more
     than `min_count` class pixels. `pred_arg` broadcasts against the
     planes: (B, 1, H, W) with planes (B, S, H, W) gives B*S components in
-    one call."""
+    one call.
+
+    `seg_stride` s > 1: the planes lie on the U-Net's 1/s lattice. The
+    CCA's pooling shrinks by s (the same component grid in frame pixels),
+    the count is scaled back to frame pixels, and the component is
+    upsampled to `full_hw`."""
     cls_id = torch.as_tensor(cls_id, device=pred_arg.device)
     cls_mask = pred_arg == cls_id[..., None, None]
-    count = cls_mask.sum((-2, -1))
+    count = cls_mask.sum((-2, -1)) * (seg_stride * seg_stride)
     score = torch.where(cls_mask, score_plane, 0.0)
     comp, found, converged = cca.best_component_mask(
         cls_mask, score, min_size=0.0, rule=cca_rule,
-        scale=max(1, cca_scale), fixed_sweeps=cca_sweeps, with_flag=True)
+        scale=max(1, cca_scale // seg_stride), fixed_sweeps=cca_sweeps,
+        with_flag=True)
+    comp = _upsample_plane(comp, seg_stride, full_hw)
     return comp, found & (count > min_count), converged
 
 
@@ -122,11 +155,13 @@ def _predict_frame(models: PredictionModels, image, depth, intr,
     depth = depth.to(torch.float32)
     h, w = depth.shape
     k = len(models.classes)
+    stride = models.seg_model.out_stride
     probs, pred_arg = _segment(models.seg_model, img)
     cls_ids = torch.arange(1, k + 1, device=img.device)
     masks, found, converged = _class_mask(
         probs[1:k + 1], pred_arg, cls_ids, cca_scale=models.cca_scale,
-        cca_sweeps=models.cca_sweeps, cca_rule=models.cca_rule)
+        cca_sweeps=models.cca_sweeps, cca_rule=models.cca_rule,
+        seg_stride=stride, full_hw=(h, w))
 
     r0, c0, win = proj.zoom_window_bbox(masks, models.crop, h, w)
     clouds, chooses, counts = proj.backproject_choose_zoom(
@@ -140,7 +175,8 @@ def _predict_frame(models: PredictionModels, image, depth, intr,
     quat, trans = _pose_stage(models, crops, clouds, chooses, obj_idx,
                               models.refine_iters)
     out = {"found": found, "masks": masks, "quats": quat,
-           "positions": trans, "argmax": pred_arg,
+           "positions": trans,
+           "argmax": _upsample_plane(pred_arg, stride, (h, w)),
            "cca_converged": converged.expand(k)}
     if w % 8 == 0:
         out["masks_packed"] = _pack_masks(masks)
@@ -163,18 +199,19 @@ def _predict_batch(models: PredictionModels, images, depths, intr,
     b, h, w = depths.shape
     k = len(models.classes)
     dev = imgs.device
+    stride = models.seg_model.out_stride
     # NCHW, as the single-frame graph's input reaches cuDNN (its strides
     # are not channels-last): at one layout the f32 logits of a frame do
     # not depend on the batch, while channels-last algorithms round
     # otherwise and flip argmax pixels
     logits = models.seg_model(normalize_imagenet(imgs).contiguous())
     probs = torch.softmax(logits, dim=1)
-    pred_arg = torch.argmax(probs, dim=1)                    # (B, H, W)
+    pred_arg = torch.argmax(probs, dim=1)                # (B, H/s, W/s)
     cls_ids = torch.arange(1, k + 1, device=dev)
     masks, found, converged = _class_mask(
         probs[:, 1:k + 1], pred_arg[:, None], cls_ids,
         cca_scale=models.cca_scale, cca_sweeps=models.cca_sweeps,
-        cca_rule=models.cca_rule)
+        cca_rule=models.cca_rule, seg_stride=stride, full_hw=(h, w))
     masks, found = masks.flatten(0, 1), found.flatten(0, 1)  # B*K lanes
 
     lane_frame = torch.arange(b, device=dev).repeat_interleave(k)
@@ -196,7 +233,8 @@ def _predict_batch(models: PredictionModels, images, depths, intr,
     masks = per_frame(masks)
     out = {"found": per_frame(found), "masks": masks,
            "quats": per_frame(quat), "positions": per_frame(trans),
-           "argmax": pred_arg, "cca_converged": converged.expand(b, k)}
+           "argmax": _upsample_plane(pred_arg, stride, (h, w)),
+           "cca_converged": converged.expand(b, k)}
     if w % 8 == 0:
         out["masks_packed"] = _pack_masks(masks)
     return out
@@ -487,16 +525,21 @@ def build_models(num_classes_fg: int, model_points: np.ndarray, classes,
                  seed: int = 0, agg_topk: int = 1, cca_scale: int = 8,
                  cca_sweeps: int = 3, emb_stride: int = 8,
                  emb_resize_late: bool = False, cca_rule: str = "sum",
-                 device=None) -> PredictionModels:
+                 seg_out_stride: int = 1, device=None) -> PredictionModels:
     """The networks in inference mode on `device` (cuda by default). The
     `*_vars` are the JAX package's flax variable trees (numpy); a missing
     one is initialized from `seed` the way flax initializes it, on the CPU,
-    so a seed gives the same weights on every device."""
+    so a seed gives the same weights on every device. `seg_out_stride` in
+    {1, 2, 4, 8} runs the U-Net's decoder tail on that lattice (the same
+    weights; see the module's docstring)."""
+    if seg_out_stride not in (1, 2, 4, 8):
+        raise ValueError(f"seg_out_stride must be 1, 2, 4 or 8: "
+                         f"{seg_out_stride}")
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     nets = [
-        (UNet(num_classes_fg + 1, dtype=dtype), seg_vars,
-         weights.unet_state_dict),
+        (UNet(num_classes_fg + 1, dtype=dtype, out_stride=seg_out_stride),
+         seg_vars, weights.unet_state_dict),
         (PoseNet(num_classes_fg, dtype=dtype, emb_stride=emb_stride,
                  emb_resize_late=emb_resize_late), pose_vars,
          weights.posenet_state_dict),
@@ -536,10 +579,12 @@ def dataset_has_symmetric(root: str, classes) -> bool:
 def get_prediction_models(root: str, data_set_name: str,
                           dtype: torch.dtype = torch.bfloat16,
                           emb_stride: Optional[int] = None,
+                          seg_out_stride: int = 1,
                           device=None) -> PredictionModels:
     """Classes, per-class model clouds (mm -> m, wrap-padded to one M) and
     the trained weights of a dataset. `emb_stride=None` picks 2 when any
-    class is symmetric (those regress at coarser strides), else 8."""
+    class is symmetric (those regress at coarser strides), else 8;
+    `seg_out_stride` goes to `build_models`."""
     classes = io.read_lines(os.path.join(
         io.dataset_dir(root, "segmentation", data_set_name), "classes.txt"))
     if emb_stride is None:
@@ -564,7 +609,8 @@ def get_prediction_models(root: str, data_set_name: str,
     return build_models(len(classes), model_points, classes,
                         seg_vars=seg_vars, pose_vars=pose_vars,
                         refine_vars=refine_vars, dtype=dtype,
-                        emb_stride=emb_stride, device=device)
+                        emb_stride=emb_stride,
+                        seg_out_stride=seg_out_stride, device=device)
 
 
 def get_robot2object(prediction: Dict, controller, end2cam: np.ndarray

@@ -12,6 +12,12 @@ Writes <run>.ply/.pcd, <obj>_out.ply/.pcd, <obj>.ply/.pcd (AABB-centred,
 geometry is in robot-frame mm. The host orchestrates file IO and the
 variable-size -> padded-bucket conversions; the cloud ops run on `device`
 (CUDA unless the caller passes another).
+
+With a `mesh` (`parallel/mesh.py`) the per-view surfaces are split over its
+'data' ranks in contiguous blocks of views (padded with empty views to a
+multiple of the ranks) and gathered in view order on every rank; the
+sequential ICP merge then runs on rank 0, which writes the artifacts and
+broadcasts the result.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch
 from ..ops import icp as icp_ops
 from ..ops import pointcloud as pc
 from ..ops import projection as proj
+from ..parallel import mesh as pmesh
 from ..utils import io
 from ..utils.device import resolve_device
 
@@ -160,43 +167,67 @@ def get_surface(label: np.ndarray, depth: np.ndarray, intr, robot2cam,
 def get_surfaces_batched(labels: Sequence[np.ndarray],
                          depths: Sequence[np.ndarray], intrs, robot2cams,
                          min_friends: int, min_dist: float, nb_neighbors: int,
-                         voxel_size: float, cap: int = 4096,
-                         device=None) -> List[np.ndarray]:
-    """Every view's surface on the full pixel lattice, on one device: the
-    H*W lattice is backprojected under its mask, voxel-downsampled exactly,
-    and the first `cap` voxel means (all of them whenever K <= cap) go
-    through the outlier chain. A view with more than `cap` voxels is
-    recomputed by `get_surface`. Matches per-view `get_surface` up to float
-    association order."""
+                         voxel_size: float, mesh: Optional[pmesh.Mesh] = None,
+                         cap: int = 4096, device=None) -> List[np.ndarray]:
+    """Every view's surface on the full pixel lattice: the H*W lattice is
+    backprojected under its mask, voxel-downsampled exactly, and the first
+    `cap` voxel means (all of them whenever K <= cap) go through the
+    outlier chain. A view with more than `cap` voxels is recomputed by
+    `get_surface`. Matches per-view `get_surface` up to float association
+    order. With `mesh` each 'data' rank runs its block of the views (the
+    list padded with empty views to a multiple of the ranks) and every rank
+    returns all of them, in order."""
     dev = resolve_device(device)
-    intrs = intrs if isinstance(intrs, (list, tuple)) else [intrs] * len(
-        labels)
-    out = []
-    for label, depth, intr, r2c in zip(labels, depths, intrs, robot2cams):
-        h, w = label.shape
-        rows = torch.arange(h, dtype=torch.float32, device=dev)[:, None] \
-            .expand(h, w).reshape(-1)
-        cols = torch.arange(w, dtype=torch.float32, device=dev)[None, :] \
-            .expand(h, w).reshape(-1)
-        z = torch.as_tensor(np.asarray(depth, np.float32), device=dev
-                            ).reshape(-1)
-        valid = (torch.as_tensor(np.asarray(label), device=dev).reshape(-1)
-                 != 0) & (z > 0)
-        cam = proj.pixels_to_points(
-            rows, cols, z, torch.as_tensor(_intr_vector(intr), device=dev))
-        r2c_t = torch.as_tensor(np.asarray(r2c, np.float32), device=dev)
-        robot = cam @ r2c_t[:3, :3].T + r2c_t[:3, 3]
-        pts, v = pc.voxel_downsample(robot, valid, voxel_size)
-        if int(v.sum()) > cap:
-            # slicing would drop a contiguous block of high voxel ids
-            out.append(get_surface(np.asarray(label), np.asarray(depth),
-                                   intr, r2c, min_friends, min_dist,
-                                   nb_neighbors, voxel_size, dev))
-            continue
-        pts, v = pts[:cap], v[:cap]
-        v = _clean_chain(pts, v, min_friends, min_dist, nb_neighbors)
-        out.append(pc.compact(pts, v))
-    return out
+    v = len(labels)
+    views = list(zip(labels, depths,
+                     intrs if isinstance(intrs, (list, tuple))
+                     else [intrs] * v, robot2cams))
+    if mesh is None:
+        return [_lattice_surface(*view, min_friends, min_dist, nb_neighbors,
+                                 voxel_size, cap, dev) for view in views]
+    pad = (-v) % mesh.shape[mesh.axes[0]]
+    if pad and views:
+        empty = np.zeros_like(np.asarray(views[0][0]))
+        views += [(empty, np.zeros(empty.shape, np.float32), views[0][2],
+                   np.eye(4))] * pad
+    lo, hi = pmesh.row_block(mesh, len(views)) or (0, len(views))
+    mine = [_lattice_surface(*view, min_friends, min_dist, nb_neighbors,
+                             voxel_size, cap, dev) for view in views[lo:hi]]
+    gathered = pmesh.all_gather_objects(mesh, mine)
+    return [s for block in gathered for s in block][:v]
+
+
+def _columns(views, k: int) -> List[list]:
+    """The first k fields of a list of view tuples, as k lists."""
+    return [[view[i] for view in views] for i in range(k)]
+
+
+def _lattice_surface(label, depth, intr, r2c, min_friends: int,
+                     min_dist: float, nb_neighbors: int, voxel_size: float,
+                     cap: int, dev) -> np.ndarray:
+    """One view of `get_surfaces_batched`."""
+    h, w = label.shape
+    rows = torch.arange(h, dtype=torch.float32, device=dev)[:, None] \
+        .expand(h, w).reshape(-1)
+    cols = torch.arange(w, dtype=torch.float32, device=dev)[None, :] \
+        .expand(h, w).reshape(-1)
+    z = torch.as_tensor(np.asarray(depth, np.float32), device=dev
+                        ).reshape(-1)
+    valid = (torch.as_tensor(np.asarray(label), device=dev).reshape(-1)
+             != 0) & (z > 0)
+    cam = proj.pixels_to_points(
+        rows, cols, z, torch.as_tensor(_intr_vector(intr), device=dev))
+    r2c_t = torch.as_tensor(np.asarray(r2c, np.float32), device=dev)
+    robot = cam @ r2c_t[:3, :3].T + r2c_t[:3, 3]
+    pts, v = pc.voxel_downsample(robot, valid, voxel_size)
+    if int(v.sum()) > cap:
+        # slicing would drop a contiguous block of high voxel ids
+        return get_surface(np.asarray(label), np.asarray(depth), intr,
+                           r2c, min_friends, min_dist, nb_neighbors,
+                           voxel_size, dev)
+    pts, v = pts[:cap], v[:cap]
+    v = _clean_chain(pts, v, min_friends, min_dist, nb_neighbors)
+    return pc.compact(pts, v)
 
 
 def _icp_merge(target_np: np.ndarray, source_np: np.ndarray,
@@ -248,30 +279,43 @@ def get_surface_positions(root: str, object_name: str, run: str,
                           min_friends: int, min_dist: float,
                           nb_neighbors: int, mode: str = "gen",
                           voxel_size: float = 5.0,
+                          mesh: Optional[pmesh.Mesh] = None,
                           device=None) -> np.ndarray:
     """Per-sample (surface centroid, camera position) pairs in the robot
     frame, the inputs of `ops/pointcloud.triangulate_position`; one view in
-    memory at a time."""
+    memory at a time, or with `mesh` all views through
+    `get_surfaces_batched` split over its 'data' ranks."""
     dev = resolve_device(device)
     label_root = os.path.join(io.label_dir(root), object_name, run)
     data_root = os.path.join(io.data_dir(root), object_name, run)
-    positions = []
-    for fn in sorted(os.listdir(label_root)):
-        if not fn.endswith(f".{mode}.label.png"):
-            continue
+
+    def read_view(fn):
         stem = fn[: -len(f".{mode}.label.png")]
         meta = io.read_sample_meta(os.path.join(data_root,
                                                 stem + ".meta.json"))
-        r2c = io.robot2cam_from_meta(meta)
-        surface = get_surface(
-            io.read_label(os.path.join(label_root, fn)),
-            io.read_depth(os.path.join(data_root, stem + ".depth.png")
-                          ).astype(np.float64),
-            meta["intr"], r2c, min_friends, min_dist, nb_neighbors,
-            voxel_size, dev)
-        if len(surface):
-            positions.append([surface.mean(axis=0), r2c[:3, 3]])
-    return np.asarray(positions)
+        return (io.read_label(os.path.join(label_root, fn)),
+                io.read_depth(os.path.join(data_root, stem + ".depth.png")
+                              ).astype(np.float64),
+                meta["intr"], io.robot2cam_from_meta(meta))
+
+    fns = [fn for fn in sorted(os.listdir(label_root))
+           if fn.endswith(f".{mode}.label.png")]
+    if mesh is not None:
+        views = [read_view(fn) for fn in fns]
+        surfaces = get_surfaces_batched(
+            *_columns(views, 4), min_friends, min_dist, nb_neighbors,
+            voxel_size, mesh=mesh, device=dev)
+        r2cs = [view[3] for view in views]
+    else:
+        surfaces, r2cs = [], []
+        for fn in fns:
+            label, depth, intr, r2c = read_view(fn)
+            surfaces.append(get_surface(label, depth, intr, r2c, min_friends,
+                                        min_dist, nb_neighbors, voxel_size,
+                                        dev))
+            r2cs.append(r2c)
+    return np.asarray([[s.mean(axis=0), r2c[:3, 3]]
+                       for s, r2c in zip(surfaces, r2cs) if len(s)])
 
 
 def load_point_cloud(object_name: str, save_dir: str, root: str,
@@ -282,37 +326,61 @@ def load_point_cloud(object_name: str, save_dir: str, root: str,
                      nb_neighbors: int = 5, global_regression: bool = False,
                      icp_point2point: bool = True,
                      icp_point2plane: bool = True,
-                     progress=None, device=None) -> np.ndarray:
+                     progress=None, mesh: Optional[pmesh.Mesh] = None,
+                     device=None) -> np.ndarray:
     """Reconstruct one object from its labelled runs and write every
     artifact; returns the final centred cloud (mm) at `voxel_size_out`.
-    Runs on `device` (CUDA unless the caller passes another)."""
+    Runs on `device` (CUDA unless the caller passes another). With `mesh`
+    every rank calls it: each run's surfaces come from
+    `get_surfaces_batched` split over the 'data' ranks, rank 0 merges and
+    writes, and every rank returns its cloud."""
     dev = resolve_device(device)
+    writer = pmesh.is_writer(mesh)
     label_root = os.path.join(io.label_dir(root), object_name)
     runs = [d for d in sorted(os.listdir(label_root)) if d != "extra"]
     if not runs:
         raise ValueError("no labels obtained yet")
     data_path = os.path.join(io.data_dir(root), object_name)
     pcd_path = os.path.join(save_dir, object_name)
-    os.makedirs(pcd_path, exist_ok=True)
+    if writer:
+        os.makedirs(pcd_path, exist_ok=True)
 
     run_clouds: List[np.ndarray] = []
     for run in runs:
         n = len([f for f in os.listdir(os.path.join(label_root, run))
                  if f.endswith(f".{mode}.label.png")])
-        rotation = np.eye(3)
-        merged: Optional[np.ndarray] = None
-        for idx in get_view_distribution(data_path, run, n,
-                                         min(n_viewpoints, n)):
+
+        def read_view(idx):
             meta = io.read_sample_meta(
                 os.path.join(data_path, run, f"{idx:06d}.meta.json"))
             label = io.read_label(os.path.join(
                 label_root, run, f"{idx:06d}.{mode}.label.png"))
             depth = io.read_depth(os.path.join(
                 data_path, run, f"{idx:06d}.depth.png")).astype(np.float64)
-            rotation = np.asarray(meta["object_pose"])[:3, :3]
-            source = get_surface(label, depth, meta["intr"],
-                                 io.robot2cam_from_meta(meta), min_friends,
-                                 min_dist, nb_neighbors, voxel_size, dev)
+            return (label, depth, meta["intr"], io.robot2cam_from_meta(meta),
+                    np.asarray(meta["object_pose"])[:3, :3])
+
+        selection = get_view_distribution(data_path, run, n,
+                                          min(n_viewpoints, n))
+        rotation = np.eye(3)
+        surfaces = None
+        if mesh is not None:
+            views = [read_view(idx) for idx in selection]
+            if views:
+                rotation = views[-1][4]
+            surfaces = get_surfaces_batched(
+                *_columns(views, 4), min_friends, min_dist, nb_neighbors,
+                voxel_size, mesh=mesh, device=dev)
+            if not writer:         # the sequential merge is rank 0's
+                continue
+        merged: Optional[np.ndarray] = None
+        for view_i, idx in enumerate(selection):
+            if surfaces is not None:
+                source = surfaces[view_i]
+            else:
+                label, depth, intr, r2c, rotation = read_view(idx)
+                source = get_surface(label, depth, intr, r2c, min_friends,
+                                     min_dist, nb_neighbors, voxel_size, dev)
             if len(source) == 0:
                 continue
             if merged is None:
@@ -333,6 +401,8 @@ def load_point_cloud(object_name: str, save_dir: str, root: str,
         io.write_pcd(os.path.join(pcd_path, f"{run}.pcd"), merged)
         run_clouds.append(merged)
 
+    if not writer:
+        return pmesh.broadcast_object(mesh, None)
     cloud = align_point_clouds(run_clouds, min_friends, min_dist,
                                nb_neighbors, voxel_size, threshold, dev)
     io.write_ply(os.path.join(pcd_path, f"{object_name}_out.ply"), cloud)
@@ -354,4 +424,4 @@ def load_point_cloud(object_name: str, save_dir: str, root: str,
         vs += 0.1
         out = _np_voxel_centroids(big, vs)
     io.write_xyz(os.path.join(pcd_path, f"{object_name}.xyz"), out)
-    return down
+    return pmesh.broadcast_object(mesh, down)

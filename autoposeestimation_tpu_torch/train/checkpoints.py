@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import weights
+from ..models.common import full_tensor
 
 
 def _flatten(tree: Dict[str, Any], prefix: str) -> Dict[str, np.ndarray]:
@@ -89,15 +90,16 @@ def adam_tree(adam: torch.optim.Adam, model: torch.nn.Module,
     parameters under `adam`: `{"1": inject}` behind a clip (the clip's
     state holds nothing), `inject` alone without one; inject =
     {".count", ".hyperparams", ".inner_state": {"0": {".count", ".mu",
-    ".nu"}}}, mu and nu in the flax layout."""
+    ".nu"}}}, mu and nu in the flax layout (a tensor-parallel shard's
+    gathered back to its full rows, a collective over its group)."""
     pplan = _param_plan(plan)
     named = dict(model.named_parameters())
     mu, nu, steps = {}, {}, set()
     for _, key, _ in pplan:
         st = adam.state.get(named[key], {})
         p = named[key]
-        mu[key] = st.get("exp_avg", torch.zeros_like(p))
-        nu[key] = st.get("exp_avg_sq", torch.zeros_like(p))
+        mu[key] = full_tensor(p, st.get("exp_avg", torch.zeros_like(p)))
+        nu[key] = full_tensor(p, st.get("exp_avg_sq", torch.zeros_like(p)))
         steps.add(int(st["step"]) if "step" in st else 0)
     if len(steps) != 1:
         raise ValueError(f"parameters at different Adam steps: {steps}")

@@ -18,7 +18,16 @@ checkpoint format with the `losses.json` curve log beside them. Every epoch
 `train()` also writes `trainer_resume.npz`, a snapshot of both networks,
 both optimizers and the phase machine in the JAX trainer's layout, which
 `resume_trainer` restores (either package's), and, given test batches with
-the raw frames, the per-epoch pose images and the loss curves."""
+the raw frames, the per-epoch pose images and the loss curves.
+
+Data parallelism (`DFConfig.data_parallel`, `parallel/mesh.py`): every
+rank runs `train()` on the same batches; the steps take `mesh=` and keep
+their rank's block of rows (a batch that does not divide is replicated),
+draw dropout for the whole batch and keep their rows, average the
+gradients over 'data' before the clip, take the clip's norm over the
+logical gradients (a column-sharded weight's squares summed over
+'model'), and return global-batch metrics; `eval_step_full` gathers the
+per-sample outputs. Only rank 0 writes files."""
 from __future__ import annotations
 
 import os
@@ -28,12 +37,14 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import weights
 from ..models import losses
 from ..models import torch_import as ti
 from ..models.common import init_like_flax
 from ..models.densefusion import PoseNet, PoseRefineNet
+from ..parallel import mesh as pmesh
 from ..pipeline.visualize import pointcloud2image
 from ..utils import io
 from ..utils import transforms as T
@@ -68,6 +79,9 @@ class DFConfig:
     # bf16 distances in the symmetric-loss training kernel (evaluation and
     # checkpoint selection stay f32)
     sym_bf16: bool = True
+    # mesh data parallelism (parallel/mesh.py::auto_mesh): 'auto' engages
+    # when more than one rank is up, 'on' always, 'off' never
+    data_parallel: str = "auto"
     # global-norm gradient clip (see make_optimizer; <= 0 disables)
     grad_clip: float = 10.0
 
@@ -81,7 +95,11 @@ class ClippedAdam:
     """Adam (beta 0.9/0.999, eps 1e-8) behind optax's global-norm clip:
     g * where(norm < clip, 1, clip / norm). `step` returns the norm taken
     before the clip. The learning rate is rounded to f32, as optax's
-    injected hyperparameter is, so a snapshot restores it exactly."""
+    injected hyperparameter is, so a snapshot restores it exactly.
+
+    `step(mesh)` first averages the gradients over 'data'; the norm is the
+    logical gradient's: the squares of a column-parallel shard are summed
+    over 'model', a replicated parameter's counted once."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
                  clip: float = 10.0):
@@ -94,10 +112,21 @@ class ClippedAdam:
         self.adam.zero_grad(set_to_none=True)
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
-        grads = [p.grad for p in self.params if p.grad is not None]
-        gnorm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g) for g in grads]))
+    def step(self, mesh: Optional[pmesh.Mesh] = None) -> torch.Tensor:
+        if mesh is not None:
+            pmesh.all_reduce_grads(mesh, self.params)
+        live = [p for p in self.params if p.grad is not None]
+        grads = [p.grad for p in live]
+        norms = torch.stack([torch.linalg.vector_norm(g) for g in grads])
+        sharded = torch.tensor([hasattr(p, "tp_shard") for p in live],
+                               device=norms.device)
+        if mesh is not None and bool(sharded.any()):
+            tp_sq = torch.where(sharded, norms * norms, 0.0).sum()
+            dist.all_reduce(tp_sq, group=mesh.groups[mesh.axes[1]])
+            gnorm = torch.sqrt(torch.where(sharded, 0.0, norms * norms).sum()
+                               + tp_sq)
+        else:
+            gnorm = torch.linalg.vector_norm(norms)
         if self.clip and self.clip > 0:
             scale = torch.where(gnorm < self.clip, 1.0, self.clip / gnorm)
             for g in grads:
@@ -138,34 +167,51 @@ def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _local(mesh: Optional[pmesh.Mesh], batch: Dict[str, torch.Tensor]):
+    """(this rank's rows of the batch, the dropout's `rows` (n, lo) or
+    None when the batch is whole here)."""
+    if mesh is None:
+        return batch, None
+    n = batch["obj_idx"].shape[0]
+    block = pmesh.row_block(mesh, n)
+    return (pmesh.shard_batch_data(mesh, batch),
+            None if block is None else (n, block[0]))
+
+
 def estimator_step(posenet: PoseNet, optimizer: ClippedAdam,
                    batch: Dict[str, torch.Tensor], w: float,
                    with_sym: bool = True, sym_bf16: bool = False,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   mesh: Optional[pmesh.Mesh] = None
                    ) -> Dict[str, torch.Tensor]:
     """One estimator phase step with dropout from `generator`. Returns
-    {loss, dis, gnorm}, gnorm the gradient norm before the clip."""
+    {loss, dis, gnorm}, gnorm the gradient norm before the clip. With
+    `mesh` every rank passes the same global batch and takes its rows."""
     optimizer.zero_grad()
+    batch, rows = _local(mesh, batch)
     pred_r, pred_t, pred_c, _ = posenet(
         batch["img"], batch["cloud"], batch["choose"], batch["obj_idx"],
-        train=True, generator=generator)
+        train=True, generator=generator, rows=rows)
     out = losses.pose_loss(pred_r, pred_t, pred_c, batch["target"],
                            batch["model_points"], batch["cloud"],
                            batch["is_sym"], w=w, with_sym=with_sym,
                            sym_bf16=sym_bf16)
     out.loss.backward()
-    gnorm = optimizer.step()
-    return {"loss": out.loss.detach(), "dis": out.dis.detach().mean(),
+    gnorm = optimizer.step(mesh)
+    return {"loss": pmesh.data_mean(mesh, out.loss.detach()),
+            "dis": pmesh.data_mean(mesh, out.dis.detach().mean()),
             "gnorm": gnorm}
 
 
 def refiner_step(posenet: PoseNet, refiner: PoseRefineNet,
                  optimizer: ClippedAdam, batch: Dict[str, torch.Tensor],
-                 w: float, iteration: int = 2, with_sym: bool = True
+                 w: float, iteration: int = 2, with_sym: bool = True,
+                 mesh: Optional[pmesh.Mesh] = None
                  ) -> Dict[str, torch.Tensor]:
     """One refiner phase step: the frozen estimator's forward, then
     `iteration` rebased refiner passes whose mean distances are summed into
     one loss. Returns {dis}, the last pass's mean distance."""
+    batch, _ = _local(mesh, batch)
     with torch.no_grad():
         pred_r, pred_t, pred_c, emb = posenet(
             batch["img"], batch["cloud"], batch["choose"], batch["obj_idx"])
@@ -182,8 +228,8 @@ def refiner_step(posenet: PoseNet, refiner: PoseRefineNet,
             batch["is_sym"], with_sym=with_sym)
         total = total + mean_dis
     total.backward()
-    optimizer.step()
-    return {"dis": dis.detach().mean()}
+    optimizer.step(mesh)
+    return {"dis": pmesh.data_mean(mesh, dis.detach().mean())}
 
 
 @dataclass
@@ -201,10 +247,13 @@ class EvalModels:
 def eval_step_full(posenet: PoseNet, refiner: Optional[PoseRefineNet],
                    batch: Dict[str, torch.Tensor], w: float,
                    refine_start: bool = False, iteration: int = 2,
-                   with_sym: bool = True):
+                   with_sym: bool = True,
+                   mesh: Optional[pmesh.Mesh] = None):
     """Per-sample test distances (B,) and the composed predicted pose
     (quat (B, 4), trans (B, 3)); with `refine_start`, `iteration` rebased
-    refiner steps follow the estimator."""
+    refiner steps follow the estimator. With `mesh` each rank runs its
+    rows and the outputs are gathered, in order, on every rank."""
+    batch, rows = _local(mesh, batch)
     pred_r, pred_t, pred_c, emb = posenet(batch["img"], batch["cloud"],
                                           batch["choose"], batch["obj_idx"])
     est = losses.pose_loss(pred_r, pred_t, pred_c, batch["target"],
@@ -221,14 +270,18 @@ def eval_step_full(posenet: PoseNet, refiner: Optional[PoseRefineNet],
                 dr, dt, new_target, batch["model_points"], new_points,
                 batch["is_sym"], with_sym=with_sym)
             quat, trans = losses.compose_refined(dr, dt, quat, trans)
+    if rows is not None:
+        dis, quat, trans = (pmesh.all_gather_rows(mesh, t)
+                            for t in (dis, quat, trans))
     return dis, quat, trans
 
 
 def eval_step(posenet, refiner, batch, w: float, refine_start: bool = False,
-              iteration: int = 2, with_sym: bool = True) -> torch.Tensor:
+              iteration: int = 2, with_sym: bool = True,
+              mesh: Optional[pmesh.Mesh] = None) -> torch.Tensor:
     """Per-sample test distances (B,)."""
     return eval_step_full(posenet, refiner, batch, w, refine_start,
-                          iteration, with_sym)[0]
+                          iteration, with_sym, mesh)[0]
 
 
 @dataclass
@@ -296,11 +349,22 @@ def train(state: TrainerState, train_batches: Callable[[], Iterable],
     distance, losses.json, with `save_resume` the `trainer_resume.npz`
     snapshot after every epoch, and with `image_dump_dir` every
     `image_every` epochs `test_images_epoch_<N>.png` from `image_batches`
-    (test batches with raw_img and intr) and `losses.png`."""
+    (test batches with raw_img and intr) and `losses.png`.
+
+    `cfg.data_parallel` engages `parallel/mesh.py::auto_mesh`: every rank
+    calls `train()` with the same batches, the networks start from rank
+    0's weights, the steps run data-parallel, and only rank 0 writes (the
+    others wait for it at the end of each epoch)."""
     cfg = state.cfg
     dev = state.device
+    mesh = pmesh.auto_mesh(cfg.data_parallel, device=dev)
+    writer = pmesh.is_writer(mesh)
+    if mesh is not None:
+        pmesh.replicate_params(mesh, state.posenet)
+        pmesh.replicate_params(mesh, state.refiner)
     os.makedirs(out_dir, exist_ok=True)
-    log = JsonCurveLog(os.path.join(log_dir or out_dir, "losses.json"))
+    log = JsonCurveLog(os.path.join(log_dir or out_dir, "losses.json")
+                       if writer else None)
 
     for epoch in range(cfg.start_epoch, (epochs or cfg.nepoch)):
         t0 = time.time()
@@ -311,12 +375,13 @@ def train(state: TrainerState, train_batches: Callable[[], Iterable],
             if state.refine_start:
                 metrics = refiner_step(state.posenet, state.refiner,
                                        state.refine_optimizer, batch,
-                                       state.w, cfg.iteration, cfg.with_sym)
+                                       state.w, cfg.iteration, cfg.with_sym,
+                                       mesh)
                 epoch_losses.append(0.0)
             else:
                 metrics = estimator_step(state.posenet, state.optimizer,
                                          batch, state.w, cfg.with_sym,
-                                         cfg.sym_bf16, gen)
+                                         cfg.sym_bf16, gen, mesh)
                 epoch_losses.append(float(metrics["loss"]))
                 epoch_gnorms.append(float(metrics["gnorm"]))
             epoch_dis.append(float(metrics["dis"]))
@@ -326,7 +391,7 @@ def train(state: TrainerState, train_batches: Callable[[], Iterable],
             batch = to_device(batch, dev)
             dis, _, trans = eval_step_full(
                 state.posenet, state.refiner, batch, state.w,
-                state.refine_start, cfg.iteration, cfg.with_sym)
+                state.refine_start, cfg.iteration, cfg.with_sym, mesh)
             if "target_t" in batch:
                 test_terr.extend(torch.linalg.vector_norm(
                     trans - batch["target_t"], dim=1).tolist())
@@ -344,24 +409,25 @@ def train(state: TrainerState, train_batches: Callable[[], Iterable],
         if test_mean <= state.best_test:
             state.best_test = test_mean
             meta = {"epoch": epoch, "test_dis": test_mean}
-            if state.refine_start:
+            if writer and state.refine_start:
                 checkpoints.save_checkpoint(
                     os.path.join(out_dir, "pose_refine_model"),
                     weights.refiner_variables(state.refiner), meta)
-            else:
+            elif writer:
                 checkpoints.save_checkpoint(
                     os.path.join(out_dir, "pose_model"),
                     weights.posenet_variables(state.posenet), meta)
 
         state.maybe_transition(epoch)
-        if save_resume:
+        if save_resume and writer:
             save_trainer_snapshot(state, out_dir, next_epoch=epoch + 1)
-        if (image_dump_dir and image_batches is not None
+        if (image_dump_dir and image_batches is not None and writer
                 and epoch % max(image_every, 1) == 0):
             os.makedirs(image_dump_dir, exist_ok=True)
             dump_pose_images(state, image_batches, os.path.join(
                 image_dump_dir, f"test_images_epoch_{epoch}.png"))
             plot_loss_curves(log, os.path.join(image_dump_dir, "losses.png"))
+        pmesh.barrier(mesh)
         if epoch_callback is not None:
             epoch_callback(state, epoch, test_mean)
     return state

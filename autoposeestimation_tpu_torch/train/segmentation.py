@@ -17,7 +17,15 @@ epoch on the device and read once an epoch, the mIoU with the background
 left out, the best-valid-mIoU checkpoint `ckpt_name` in the JAX package's
 format (which its `load_checkpoint` reads) with the `logs.json` curve log,
 an optional `ReduceLROnPlateau`, and the IoU after keeping each sample's
-best connected component (`with_cca_metric`)."""
+best connected component (`with_cca_metric`).
+
+Data parallelism (`SegConfig.data_parallel`, `parallel/mesh.py`): every
+rank iterates the same batches and keeps its block of rows (a batch that
+does not divide is replicated); BatchNorm takes the global batch's
+statistics, the jaccard loss is the global batch's, the gradients are
+averaged over 'data', and the epoch's confusion matrices are summed over
+the ranks before the IoU, so every rank sees one IoU and takes one
+plateau decision. Only rank 0 writes files."""
 from __future__ import annotations
 
 import functools
@@ -32,9 +40,10 @@ import torch
 from .. import weights
 from ..data.loader import device_prefetch
 from ..models import losses, seg_variants
-from ..models.common import init_like_flax
+from ..models.common import init_like_flax, sync_batchnorm
 from ..models.unet import UNet
 from ..ops import cca as cca_ops
+from ..parallel import mesh as pmesh
 from ..utils import io
 from ..utils.device import resolve_device
 from ..utils.timing import JsonCurveLog
@@ -58,8 +67,8 @@ class SegConfig:
     optimizer: str = "adam"         # 'adam' | 'sgd' (nesterov)
     momentum: float = 0.9
     use_imagenet_stats: bool = True
-    # 'auto' and 'off' train on the one given device; 'on' (mesh data
-    # parallelism) is not ported yet
+    # mesh data parallelism (parallel/mesh.py::auto_mesh): 'auto' engages
+    # when more than one rank is up, 'on' always, 'off' never
     data_parallel: str = "auto"
 
 
@@ -114,34 +123,60 @@ def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
             "label": _tensor(batch["label"]).to(device, torch.int64)}
 
 
+def _local(mesh: Optional[pmesh.Mesh], batch: Dict[str, torch.Tensor]):
+    """(this rank's rows of the batch, whether its confusion counts): a
+    replicated batch is counted by data index 0 alone, so that the sum
+    over 'data' counts every pixel once."""
+    if mesh is None:
+        return batch, True
+    if pmesh.row_block(mesh, batch["label"].shape[0]) is None:
+        return batch, mesh.coords[mesh.axes[0]] == 0
+    return pmesh.shard_batch_data(mesh, batch), True
+
+
+def _data_group(mesh: Optional[pmesh.Mesh]):
+    return None if mesh is None else mesh.groups[mesh.axes[0]]
+
+
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-               batch: Dict[str, torch.Tensor], num_classes: int
+               batch: Dict[str, torch.Tensor], num_classes: int,
+               mesh: Optional[pmesh.Mesh] = None
                ) -> Dict[str, torch.Tensor]:
     """One step in train mode: the jaccard loss, its gradient and the
     optimizer's update; BatchNorm's running statistics move. Returns
-    {loss, conf} as tensors on the device (nothing is read back)."""
+    {loss, conf} as tensors on the device (nothing is read back). With
+    `mesh` every rank passes the same global batch (and the model's
+    BatchNorms are synced over 'data', see `segmentation_training`); the
+    loss is the global batch's, `conf` this rank's share of its
+    confusion."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
+    batch, counts = _local(mesh, batch)
     logits = model(batch["image"])
-    loss = losses.jaccard_loss(batch["label"], logits)
+    loss = losses.jaccard_loss(batch["label"], logits,
+                               group=_data_group(mesh))
     loss.backward()
+    if mesh is not None:
+        pmesh.all_reduce_grads(mesh, model.parameters())
     optimizer.step()
     conf = losses.confusion_matrix(logits.detach().argmax(1), batch["label"],
                                    num_classes)
-    return {"loss": loss.detach(), "conf": conf}
+    return {"loss": loss.detach(), "conf": conf if counts else conf * 0}
 
 
 @torch.no_grad()
 def eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
-              num_classes: int, with_cca: bool = False
-              ) -> Dict[str, torch.Tensor]:
+              num_classes: int, with_cca: bool = False,
+              mesh: Optional[pmesh.Mesh] = None) -> Dict[str, torch.Tensor]:
     """{loss, conf} in eval mode; with `with_cca` also conf_cca, the
     confusion after keeping each sample's foreground component of the
-    largest summed max-probability."""
+    largest summed max-probability. With `mesh` as in `train_step`."""
     model.eval()
+    batch, counts = _local(mesh, batch)
     logits = model(batch["image"])
     pred = logits.argmax(1)
-    out = {"loss": losses.jaccard_loss(batch["label"], logits),
+    out = {"loss": losses.jaccard_loss(batch["label"], logits,
+                                       group=_data_group(mesh)),
            "conf": losses.confusion_matrix(pred, batch["label"],
                                            num_classes)}
     if with_cca:
@@ -149,6 +184,10 @@ def eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
         comp, _ = cca_ops.best_component_mask(pred > 0, maxprob, 0.0, "sum")
         out["conf_cca"] = losses.confusion_matrix(
             torch.where(comp, pred, 0), batch["label"], num_classes)
+    if not counts:
+        for key in ("conf", "conf_cca"):
+            if key in out:
+                out[key] = out[key] * 0
     return out
 
 
@@ -226,11 +265,10 @@ def segmentation_training(train_loader: Callable[[], Iterable],
     of the model. `epoch_callback(model, epoch, valid_iou)` runs after each
     epoch; a plateau's new rate is written to `cfg.lr`. Returns
     {'variables': the best epoch's flax tree (a copy), 'model': the model
-    as it ends, 'best_iou', 'log'}."""
-    if cfg.data_parallel == "on":
-        raise NotImplementedError(
-            "data_parallel='on' (mesh data parallelism) is not ported: "
-            "ROADMAP.md Queue 1, item 8")
+    as it ends, 'best_iou', 'log'}. `cfg.data_parallel` engages
+    `parallel/mesh.py::auto_mesh` (see the module's docstring): every rank
+    calls this with the same loaders, the model starts from rank 0's
+    weights, and only rank 0 writes."""
     if cfg.model_name == "PSPNet":
         # the JAX train_step gives PSPNet's dropout no key, so flax raises
         # InvalidRngError at its first step; the port matches it
@@ -244,11 +282,16 @@ def segmentation_training(train_loader: Callable[[], Iterable],
     else:
         model.load_state_dict(weights.to_state_dict(init_variables, plan))
     model.to(dev)
+    mesh = pmesh.auto_mesh(cfg.data_parallel, device=dev)
+    writer = pmesh.is_writer(mesh)
+    if mesh is not None:
+        pmesh.replicate_params(mesh, model)
+        sync_batchnorm(model, _data_group(mesh))
     optimizer = make_optimizer(cfg, model.parameters())
 
     os.makedirs(out_dir, exist_ok=True)
-    log = JsonCurveLog(os.path.join(log_dir or out_dir, "logs.json"),
-                       config=asdict(cfg))
+    log = JsonCurveLog(os.path.join(log_dir or out_dir, "logs.json")
+                       if writer else None, config=asdict(cfg))
     best_iou = -1.0
     best_variables = weights.to_variables(model.state_dict(), plan)
     zeros = functools.partial(torch.zeros, (cfg.classes, cfg.classes),
@@ -259,10 +302,10 @@ def segmentation_training(train_loader: Callable[[], Iterable],
         train_losses, conf = [], zeros()
         for batch in device_prefetch(train_loader(), dev):
             m = train_step(model, optimizer, to_device(batch, dev),
-                           cfg.classes)
+                           cfg.classes, mesh)
             train_losses.append(m["loss"])
             conf += m["conf"]
-        _, train_iou = losses.iou_from_confusion(conf)
+        _, train_iou = losses.iou_from_confusion(pmesh.data_sum(mesh, conf))
 
         valid_losses, vconf, vconf_cca = [], zeros(), zeros()
         first_valid_batch = None
@@ -270,12 +313,14 @@ def segmentation_training(train_loader: Callable[[], Iterable],
             if first_valid_batch is None:
                 first_valid_batch = batch
             m = eval_step(model, to_device(batch, dev), cfg.classes,
-                          with_cca_metric)
+                          with_cca_metric, mesh)
             valid_losses.append(m["loss"])
             vconf += m["conf"]
             if with_cca_metric:
                 vconf_cca += m["conf_cca"]
-        if image_dump_dir and first_valid_batch is not None:
+        vconf = pmesh.data_sum(mesh, vconf)
+        vconf_cca = pmesh.data_sum(mesh, vconf_cca)
+        if image_dump_dir and first_valid_batch is not None and writer:
             dump_prediction_images(
                 model, first_valid_batch,
                 os.path.join(image_dump_dir, f"epoch_{epoch:04d}.png"),
@@ -299,10 +344,12 @@ def segmentation_training(train_loader: Callable[[], Iterable],
         if valid_iou > best_iou:
             best_iou = valid_iou
             best_variables = weights.to_variables(model.state_dict(), plan)
-            checkpoints.save_checkpoint(
-                os.path.join(out_dir, ckpt_name), best_variables,
-                meta={"epoch": epoch, "valid_iou": valid_iou,
-                      "config": asdict(cfg)})
+            if writer:
+                checkpoints.save_checkpoint(
+                    os.path.join(out_dir, ckpt_name), best_variables,
+                    meta={"epoch": epoch, "valid_iou": valid_iou,
+                          "config": asdict(cfg)})
+        pmesh.barrier(mesh)
 
         if plateau is not None:
             new_lr = plateau.step(valid_iou)

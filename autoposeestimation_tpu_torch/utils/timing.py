@@ -11,7 +11,8 @@ from typing import Dict, Optional
 class JsonCurveLog:
     """Epoch-curve log rewritten wholesale each update."""
 
-    def __init__(self, path: str, config: Optional[Dict] = None) -> None:
+    def __init__(self, path: Optional[str],
+                 config: Optional[Dict] = None) -> None:
         self.path = path
         self.data: Dict = dict(config or {})
         self.data.setdefault("curves", {})
@@ -24,6 +25,8 @@ class JsonCurveLog:
         self.flush()
 
     def flush(self) -> None:
+        if self.path is None:    # kept in memory (a rank that does not write)
+            return
         os.makedirs(os.path.dirname(self.path), exist_ok=True)
         with open(self.path, "w") as f:
             json.dump(self.data, f)

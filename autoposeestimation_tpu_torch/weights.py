@@ -9,7 +9,12 @@ leaf. Conversions: conv kernel HWIO -> OIHW, transposed-conv kernel HWIO ->
 (I, O, H, W) flipped in space (flax's `ConvTranspose` does not flip it,
 `F.conv_transpose2d` does), dense kernel (I, O) -> (O, I),
 PReLU slope () -> (1,), everything else copied (BatchNorm scale/bias ->
-weight/bias, batch_stats mean/var -> running_mean/running_var)."""
+weight/bias, batch_stats mean/var -> running_mean/running_var).
+
+The `*_variables(model)` exports read `models/common.py::
+full_state_dict`: a layer whose output rows were split over tensor-parallel
+ranks is gathered back to its full weight (every rank of its group takes
+part), so a flax tree never holds one rank's shard."""
 from __future__ import annotations
 
 from typing import Any, Dict, List, Sequence, Tuple
@@ -17,6 +22,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .models.common import full_state_dict
 from .models.segnet import DECODER_WIDTHS, ENCODER_WIDTHS
 
 Entry = Tuple[Tuple[str, ...], str, str]
@@ -220,7 +226,7 @@ def unet_state_dict(variables):
 
 
 def unet_variables(model: torch.nn.Module) -> Dict[str, Any]:
-    return to_variables(model.state_dict(), unet_plan())
+    return to_variables(full_state_dict(model), unet_plan())
 
 
 def posenet_state_dict(variables):
@@ -232,8 +238,8 @@ def refiner_state_dict(variables):
 
 
 def posenet_variables(model: torch.nn.Module) -> Dict[str, Any]:
-    return to_variables(model.state_dict(), posenet_plan())
+    return to_variables(full_state_dict(model), posenet_plan())
 
 
 def refiner_variables(model: torch.nn.Module) -> Dict[str, Any]:
-    return to_variables(model.state_dict(), refiner_plan())
+    return to_variables(full_state_dict(model), refiner_plan())

@@ -109,7 +109,20 @@ Phases (any failure raises and the script exits non-zero):
      (`train_pose_estimation_exp` over p_viewpoints 1.0 and 0.5, one epoch
      each, `eval_exp`, `plot_pose_exp_results`) on phase 10's dataset; and
      `App.main` with scripted input (one `host shells and experiments
-     {...}` line).
+     {...}` line),
+ 15. the U-Net's out_stride and parallelism: the f32 frame graph at
+     seg_out_stride 4 on the card against the CPU (masks equal, poses
+     within POSE_ATOL); bf16 frames/s of `full_prediction` and
+     `serve_stream(batch=4)` at the headline geometry at strides 1 and 4
+     (3 alternating rounds) and the U-Net's device time at each; then on a
+     one-rank NCCL group, whose mesh runs every collective, the full-width
+     `train()` with data_parallel 'on' against 'off' (parameters equal,
+     deterministic algorithms; ms per staged estimator step in each mode),
+     one segmentation `train_step` with synced BatchNorm 'on' against
+     'off', `load_point_cloud(mesh=)` against the streaming run on phase
+     9's 160x128 configuration and `dryrun_multichip(1, "product")`; with
+     two cards also `dryrun_multichip(2, "product")` on NCCL (one
+     `parallel and out_stride {...}` line, with the ranks that ran).
 With `--nn-timing ROOT` it runs only phase 8's timing, of the port in the
 checkout at ROOT, and prints it as one JSON line: run it on two checkouts
 back to back on one card to compare them alike. `--train-timing ROOT` does
@@ -534,7 +547,9 @@ def serving_phase(dev) -> None:
 
 # --- phase 4: card vs CPU ----------------------------------------------------
 
-def card_vs_cpu_phase(dev) -> None:
+def card_vs_cpu_phase(dev, seg_out_stride: int = 1) -> float:
+    """The f32 frame graph at 96x128 on the card and the CPU: masks,
+    found, argmax equal, poses within POSE_ATOL; the largest pose error."""
     from autoposeestimation_tpu_torch.pipeline import predict
     from autoposeestimation_tpu_torch.utils import synthetic
     from autoposeestimation_tpu_torch.utils.io import Intrinsics
@@ -555,6 +570,7 @@ def card_vs_cpu_phase(dev) -> None:
     for d in (dev, torch.device("cpu")):
         models = predict.build_models(2, mp, ("a", "b"), num_points=64,
                                       crop=32, dtype=torch.float32, seed=3,
+                                      seg_out_stride=seg_out_stride,
                                       device=d)
         with torch.inference_mode():
             frame = predict._frame_inputs(color, depth, meta, d)
@@ -574,9 +590,11 @@ def card_vs_cpu_phase(dev) -> None:
     for name in ("position", "rotation"):
         err = np.abs(gpu_pfm[name] - cpu_pfm[name]).max()
         check(err <= POSE_ATOL, f"card vs CPU: pose_from_mask {name} {err}")
-    print(f"card vs CPU (f32, 96x128): masks/found/argmax equal, "
-          f"found {gpu['found'].tolist()}, max pose error "
-          f"{max(np.abs(gpu[n] - cpu[n]).max() for n in ('quats', 'positions')):.3e}")
+    err = max(np.abs(gpu[n] - cpu[n]).max() for n in ("quats", "positions"))
+    print(f"card vs CPU (f32, 96x128, seg_out_stride={seg_out_stride}): "
+          f"masks/found/argmax equal, found {gpu['found'].tolist()}, max "
+          f"pose error {err:.3e}")
+    return float(err)
 
 
 # --- phase 5: evaluation -----------------------------------------------------
@@ -3720,6 +3738,271 @@ def host_shells_phase(dev, pose_root=None):
     return fwd, train
 
 
+# --- phase 15: the U-Net's out_stride and parallelism -------------------------
+
+PARALLEL_STEPS = 4       # staged steps timed per data_parallel mode
+PARALLEL_BACKEND = "nccl"
+STRIDE_FRAMES = 12       # a timed window of phase 15: the 4 views, cycled
+
+
+def out_stride_timing(dev) -> dict:
+    """bf16 at the headline geometry (emb_stride 8): frames/s of
+    `full_prediction` and `serve_stream(batch=4)` at seg_out_stride 1 and 4
+    in 3 rounds that alternate the strides, and the U-Net's time a frame at
+    each stride (CUDA events; device time from the profiler)."""
+    from autoposeestimation_tpu_torch.models.common import normalize_imagenet
+    from autoposeestimation_tpu_torch.pipeline import predict
+
+    frames, meta, model_points, classes = headline_frames()
+    inputs = stream_inputs(frames, meta, STRIDE_FRAMES)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    names = (STREAM_MODES[0], STREAM_MODES[2])
+    runs = {}
+    for stride in (1, 4):
+        models = predict.build_models(
+            len(classes), model_points, classes, dtype=torch.bfloat16,
+            seg_out_stride=stride, device=dev, **STREAM_MODEL)
+        modes = stream_modes(models, gen)
+        runs[stride] = (models, {name: modes[name] for name in names})
+        for run in runs[stride][1].values():            # warm-up
+            run(inputs[:4])
+    fps = {(stride, name): [] for stride in runs for name in names}
+    for _ in range(3):
+        for name in names:
+            for stride in (1, 4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs = runs[stride][1][name](inputs)
+                fps[stride, name].append(
+                    len(inputs) / (time.perf_counter() - t0))
+                check(len(outs) == len(inputs),
+                      f"seg_out_stride={stride} {name}: {len(outs)} results")
+                for out in outs:
+                    check_prediction(dict(out, elapsed_times=None),
+                                     (480, 640))
+    x = normalize_imagenet(torch.as_tensor(
+        frames[0][0], device=dev).permute(2, 0, 1))[None]
+    result = {}
+    for stride, (models, _) in runs.items():
+        with torch.inference_mode():
+            wall = cuda_ms(lambda: models.seg_model(x), 8)
+            prof = profile(lambda: [models.seg_model(x) for _ in range(4)],
+                           f"U-Net seg_out_stride={stride}, per frame", 4,
+                           wall)
+        result[f"seg_out_stride={stride}"] = dict(
+            {name: {"frames_per_s": [round(f, 4) for f in fps[stride, name]],
+                    "median": round(float(np.median(fps[stride, name])), 4)}
+             for name in names},
+            unet_ms=round(wall, 4),
+            unet_device_ms=None if prof is None else round(prof[0], 4),
+            unet_kernels=None if prof is None else round(prof[1], 1))
+    return result
+
+
+def parallel_one_rank(dev, tmp: str) -> dict:
+    """A one-rank NCCL group, on which a mesh runs every collective: the
+    full-width `train()` (5 objects, bf16, crop 320, B=8, N=1000, M=500)
+    with data_parallel 'on' against 'off' (parameters equal under
+    deterministic algorithms) and the staged estimator step's ms in each
+    mode; one segmentation `train_step` (U-Net ResNet34, synced BatchNorm,
+    SGD) 'on' against 'off'; `load_point_cloud(mesh=)` against the
+    streaming run on phase 9's 160x128 configuration; and
+    `dryrun_multichip(1, "product")`. The kernel launches of the run, from
+    0."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from autoposeestimation_tpu_torch import weights
+    from autoposeestimation_tpu_torch.models.common import (init_like_flax,
+                                                            sync_batchnorm)
+    from autoposeestimation_tpu_torch.ops import addloss, knn
+    from autoposeestimation_tpu_torch.parallel import dryrun
+    from autoposeestimation_tpu_torch.parallel import mesh as pmesh
+    from autoposeestimation_tpu_torch.reconstruction import (
+        create_pointcloud as rec)
+    from autoposeestimation_tpu_torch.train import densefusion as dft
+    from autoposeestimation_tpu_torch.train import segmentation as seg
+    from autoposeestimation_tpu_torch.utils import io, synthetic
+
+    report = {}
+    pmesh.init_group(0, 1, os.path.join(tmp, "store"), PARALLEL_BACKEND,
+                     datetime.timedelta(seconds=60))
+    try:
+        check(dist.get_backend() == PARALLEL_BACKEND,
+              f"backend {dist.get_backend()}")
+        mesh = pmesh.make_mesh()
+        _, _, model_points = synthetic.headline_scene()
+        batches = eval_batches(dev, model_points, n_batches=3)
+        # the main path: counts from 0 just before, read just after
+        addloss.moments_cuda.launches = 0
+        addloss.moments_train_cuda.launches = 0
+        knn.nn_cuda.launches = 0
+        # 'off' twice: the PSPNet's adaptive pooling has no deterministic
+        # backward on the card, so two runs of one mode differ at rounding
+        # level, which Adam's first steps turn into moves of up to 2 lr
+        # (Adam is blind to the gradient's scale: the logged loss and
+        # gradient norm are held too)
+        states, curves = {}, {}
+        for mode in ("off", "on", "off again"):
+            cfg = dft.DFConfig(data_parallel=mode.split()[0], start_epoch=0)
+            state = dft.create_trainer(5, cfg, device=dev)
+            t0 = time.perf_counter()
+            out_dir = os.path.join(tmp, mode.replace(" ", "_"))
+            dft.train(state, lambda: iter(batches[:2]),
+                      lambda: iter(batches[2:]), out_dir, epochs=1,
+                      save_resume=False)
+            torch.cuda.synchronize()
+            states[mode] = state
+            with open(os.path.join(out_dir, "losses.json")) as f:
+                curves[mode] = json.load(f)["curves"]
+            report[f"train_{mode.replace(' ', '_')}_s"] = round(
+                time.perf_counter() - t0, 4)
+        leaves = {m: tree_leaves(weights.posenet_variables(
+            states[m].posenet)) for m in states}
+        for other in ("on", "off again"):
+            moved = max(float(np.abs(a - b).max())
+                        for a, b in zip(leaves[other], leaves["off"]))
+            far = sum(int((np.abs(a - b) > 0.02 * cfg.lr).sum())
+                      for a, b in zip(leaves[other], leaves["off"]))
+            rel = {key: abs(curves[other][key][0] / curves["off"][key][0]
+                            - 1)
+                   for key in ("losses", "grad_norm_max", "test_dists")}
+            report[f"train_{other.replace(' ', '_')}_vs_off"] = {
+                "max_param_diff": moved, "params_beyond_2pct_lr": far,
+                "rel_diff": rel}
+            # two steps of Adam: each move within 2 lr of the other's
+            check(moved <= 2 * 2 * cfg.lr and rel["losses"] <= 1e-2
+                  and rel["grad_norm_max"] <= 1e-2,
+                  f"train(): '{other}' against 'off': parameters {moved} "
+                  f"apart, {rel}")
+        # the staged estimator step with and without the mesh
+        state = states["on"]
+        steps = [dft.to_device(b, dev) for b in batches[:2]]
+        gen = torch.Generator(device=dev).manual_seed(0)
+        cycle = itertools.cycle(steps)
+        for m in (None, mesh):
+            dft.estimator_step(state.posenet, state.optimizer, next(cycle),
+                               state.w, True, True, gen, m)
+        report["estimator_step_ms"] = {
+            key: [round(timed_steps(lambda: dft.estimator_step(
+                state.posenet, state.optimizer, next(cycle), state.w, True,
+                True, gen, m), PARALLEL_STEPS), 4) for _ in range(2)]
+            for key, m in (("off", None), ("on", mesh))}
+
+        # one segmentation step, synced BatchNorm over the one-rank group
+        cfg = seg.SegConfig(classes=6, lr=1e-3, optimizer="sgd")
+        rng = np.random.default_rng(9)
+        batch = seg.to_device({
+            "image": rng.normal(size=(4, 256, 256, 3)).astype(np.float32),
+            "label": rng.integers(0, 6, (4, 256, 256))}, dev)
+        nets = {}
+        for mode in ("off", "on"):
+            net = seg.build_model(cfg, dtype=torch.float32)
+            init_like_flax(net, torch.Generator().manual_seed(2))
+            net.to(dev)
+            if mode == "on":
+                sync_batchnorm(net, mesh.groups["data"])
+            opt = seg.make_optimizer(cfg, net.parameters())
+            t0 = time.perf_counter()
+            out = seg.train_step(net, opt, batch, cfg.classes,
+                                 mesh if mode == "on" else None)
+            torch.cuda.synchronize()
+            nets[mode] = (net, float(out["loss"]), out["conf"].cpu(),
+                          time.perf_counter() - t0)
+        err = max((a - b).abs().max().item() for a, b in zip(
+            nets["on"][0].parameters(), nets["off"][0].parameters()))
+        check(err <= 1e-4, f"segmentation step: parameters {err} apart")
+        check(abs(nets["on"][1] - nets["off"][1]) <= 1e-5 * nets["off"][1],
+              f"segmentation step: loss {nets['on'][1]} vs "
+              f"{nets['off'][1]}")
+        report["segmentation_step"] = {
+            "max_param_diff": err, "loss": [nets["off"][1], nets["on"][1]],
+            "confusion_equal": bool(torch.equal(nets["on"][2],
+                                                nets["off"][2])),
+            "first_step_s": [round(nets[m][3], 4) for m in ("off", "on")]}
+
+        # reconstruction, views over the mesh, against the streaming run
+        root = os.path.join(tmp, "ball")
+        write_ball_dataset(root)
+        clouds = []
+        for m in (None, mesh):
+            t0 = time.perf_counter()
+            rec.load_point_cloud("ball", os.path.join(root, str(len(clouds))),
+                                 root, **SMALL, mesh=m, device=dev)
+            clouds.append((io.read_ply(os.path.join(
+                root, str(len(clouds)), "ball", "ball_out.ply")),
+                time.perf_counter() - t0))
+        (stream, stream_s), (sharded, sharded_s) = clouds
+        sym = (mean_nn(stream, sharded) + mean_nn(sharded, stream)) / 2
+        count_rel = abs(len(sharded) - len(stream)) / len(stream)
+        check(count_rel <= 0.02 and sym < SMALL["voxel_size"],
+              f"load_point_cloud(mesh=): {len(sharded)} vs {len(stream)} "
+              f"points, symmetric mean NN {sym} mm")
+        report["load_point_cloud"] = {
+            "points": [len(stream), len(sharded)],
+            "sym_mean_nn_mm": round(float(sym), 4),
+            "s": [round(stream_s, 4), round(sharded_s, 4)]}
+
+        t0 = time.perf_counter()
+        summary = dryrun.dryrun_multichip(1, "product")[0]
+        check(np.isfinite(summary["loss"]) and np.isfinite(
+            summary["refine_dis"]) and summary["recon_views"] == 1,
+            f"dryrun_multichip(1): {summary}")
+        report["dryrun_1_s"] = round(time.perf_counter() - t0, 4)
+        torch.cuda.synchronize()
+        report["launches"] = {
+            "sym_moments": addloss.moments_cuda.launches,
+            "sym_moments_train": addloss.moments_train_cuda.launches,
+            "nn": knn.nn_cuda.launches}
+    finally:
+        dist.destroy_process_group()
+    for name, count in report["launches"].items():
+        check(count > 0, f"phase 15: {name} not launched")
+    return report
+
+
+def tree_leaves(tree):
+    """A flax tree's leaves in a fixed order."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree)
+                for leaf in tree_leaves(tree[key])]
+    return [np.asarray(tree)]
+
+
+def parallel_phase(dev):
+    """Phase 15: the U-Net's out_stride (card against CPU in f32; frames/s
+    and the U-Net's time at strides 1 and 4), then the parallel paths on
+    a one-rank NCCL group, and `dryrun_multichip(2, "product")` when the
+    machine has two cards. Returns the launches of (sym_moments,
+    sym_moments_train, nn) in the one-rank run."""
+    import tempfile
+
+    from autoposeestimation_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    report = {"card": nvidia_smi("name,power.limit"),
+              "card_vs_cpu_stride4_max_pose_err":
+              card_vs_cpu_phase(dev, seg_out_stride=4)}
+    report["out_stride"] = out_stride_timing(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        report["one_rank"] = parallel_one_rank(dev, tmp)
+    report["ranks"] = 1
+    if torch.cuda.device_count() >= 2:
+        t1 = time.perf_counter()
+        out = dryrun.dryrun_multichip(2, "product", backend="nccl")
+        check(all(np.isfinite(r["loss"]) for r in out)
+              and out[0]["loss"] == out[1]["loss"],
+              f"dryrun_multichip(2): {[r['loss'] for r in out]}")
+        report["ranks"] = 2
+        report["dryrun_2_s"] = round(time.perf_counter() - t1, 4)
+    report["phase_s"] = round(time.perf_counter() - t0, 4)
+    print("parallel and out_stride " + json.dumps(report))
+    launches = report["one_rank"]["launches"]
+    return (launches["sym_moments"], launches["sym_moments_train"],
+            launches["nn"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3766,6 +4049,7 @@ def main() -> int:
         segmentation_training_phase(dev)
         nn_calls["offline_labeling"] = labeling_phase(dev)
         shells_fwd, shells_train = host_shells_phase(dev, pose_root)
+    par_fwd, par_train, nn_calls["parallel"] = parallel_phase(dev)
     # each call is two kernels, a scan and its merge
     nn_kernel["calls_by_phase"] = nn_calls
     nn_kernel["calls"] = sum(nn_calls.values())
@@ -3773,12 +4057,14 @@ def main() -> int:
     nn_kernel["kernels_per_call"] = 2
     kernel["launches_by_phase"] = {"evaluation": kernel["launches"],
                                    "dataset_training": ds_fwd,
-                                   "host_shells": shells_fwd}
-    kernel["launches"] += ds_fwd + shells_fwd
+                                   "host_shells": shells_fwd,
+                                   "parallel": par_fwd}
+    kernel["launches"] += ds_fwd + shells_fwd + par_fwd
     train_kernel["launches_by_phase"] = {"training": train_kernel["launches"],
                                          "dataset_training": ds_train,
-                                         "host_shells": shells_train}
-    train_kernel["launches"] += ds_train + shells_train
+                                         "host_shells": shells_train,
+                                         "parallel": par_train}
+    train_kernel["launches"] += ds_train + shells_train + par_train
     print(json.dumps({"kernels": [kernel, train_kernel, nn_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -137,16 +137,15 @@ def test_config_defaults(name):
 
 def test_app_config_defaults():
     """Every field equal to the JAX AppConfig's; of the re-exported
-    DFConfig, the JAX package's two fields the port does not have are
-    `dil_s2b` (a TPU re-lowering, not ported) and `data_parallel`
-    (ROADMAP item 8)."""
+    DFConfig, the JAX package's one field the port does not have is
+    `dil_s2b` (a TPU re-lowering, not ported)."""
     got, want = fields(config.AppConfig()), fields(jconfig.AppConfig())
     assert sorted(got) == sorted(want)
     for key in want:
         if key in ("segmentation", "pose"):
             g, w = fields(got[key]), fields(want[key])
             assert {k: v for k, v in w.items() if k in g} == g
-            assert set(w) - set(g) <= {"dil_s2b", "data_parallel"}
+            assert set(w) - set(g) <= {"dil_s2b"}
         elif key in ("labels", "reconstruction", "acquisition", "serving"):
             assert fields(got[key]) == fields(want[key])
         else:

@@ -15,7 +15,8 @@ stats and the dataset lists are equal (the lists byte for byte).
 
 Then the port's `App` through a scripted `input_fn`: `create_labels`,
 `create_dataset` and `create_pose_data` on a 240x320 dataset with
-full-size U-Nets, and `data_parallel='on'` raising."""
+full-size U-Nets, and `create_pose_data(data_parallel='on')` on one rank
+(its Phase B through the view-sharded surfaces) against 'off'."""
 import os
 import shutil
 
@@ -23,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from autoposeestimation_tpu.labeling import create_labels as jcl
 from autoposeestimation_tpu.labeling import make_dataset as jmd
@@ -37,6 +39,9 @@ from autoposeestimation_tpu_torch.models import unet
 from autoposeestimation_tpu_torch.models.common import (init_like_flax,
                                                         normalize_imagenet)
 from autoposeestimation_tpu_torch.ops import bg_subtraction as bgs
+from autoposeestimation_tpu_torch.parallel import mesh as pmesh
+from autoposeestimation_tpu_torch.reconstruction import (
+    create_pointcloud as rec)
 from autoposeestimation_tpu_torch.train import checkpoints
 from autoposeestimation_tpu_torch.utils import io, synthetic
 from test_torch_models import init_vars
@@ -301,9 +306,29 @@ def test_app_labeling_flow(tmp_path):
         np.testing.assert_allclose(meta["robot2object"][:3, 3], centre,
                                    atol=1e-3)
     assert (gt > 0).sum() > 500
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # 'on' starts a one-rank group and hands its mesh to Phase B: the
+    # cloud is `load_point_cloud(mesh=)`'s at create_pose_data's settings
+    # (the lattice surfaces of every view, gathered), and Phase C labels it
+    try:
         cl.create_pose_data(root, ["ball"], "synth", None, REF,
                             new_pred=False, data_parallel="on", device="cpu")
+        assert dist.get_world_size() == 1
+        want = rec.load_point_cloud(
+            "ball", str(tmp_path / "direct"), root, reference_point=REF,
+            mode="pred", n_viewpoints=30, min_friends=20, min_dist=5,
+            nb_neighbors=20, threshold=10, voxel_size=2, voxel_size_out=5,
+            icp_point2point=True, icp_point2plane=False,
+            mesh=pmesh.make_mesh(), device="cpu")
+    finally:
+        dist.destroy_process_group()
+    got = io.read_ply(os.path.join(io.pc_dir(root), "ball", "ball.ply"))
+    np.testing.assert_allclose(got, want, atol=1e-4)   # the ply's digits
+    cloud = io.read_ply(os.path.join(io.pc_dir(root), "ball", "ball_out.ply"))
+    centre = (cloud.min(0) + cloud.max(0)) / 2
+    meta = io.read_pose_label_meta(os.path.join(
+        io.label_dir(root), "ball", "foreground", "000000.meta.json"))
+    np.testing.assert_allclose(meta["robot2object"][:3, 3], centre,
+                               atol=1e-3)
     with pytest.raises(ValueError, match="data_parallel"):
         cl.create_pose_data(root, ["ball"], "synth", None, REF,
                             new_pred=False, data_parallel="many",

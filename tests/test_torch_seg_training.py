@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from autoposeestimation_tpu.data import loader as jloader
 from autoposeestimation_tpu.data import segmentation_dataset as jsd
@@ -399,8 +400,9 @@ def test_random_prediction_iou(data):
 def test_registry_and_refusals(tmp_path):
     """LinkNet and PSPNet build over resnet34 (other encoders raise);
     PSPNet does not train, as in the JAX package, whose train_step gives
-    its dropout no key; data_parallel='on' waits for the parallel item;
-    the entry point needs a card unless given the CPU."""
+    its dropout no key; data_parallel='on' trains on a one-rank group
+    (no batch here) and another value raises; the entry point needs a card
+    unless given the CPU."""
     assert isinstance(seg.build_model(seg.SegConfig(model_name="LinkNet")),
                       torch.nn.Module)
     with pytest.raises(NotImplementedError, match="encoder"):
@@ -410,8 +412,16 @@ def test_registry_and_refusals(tmp_path):
     with pytest.raises(ValueError, match="dropout"):
         seg.segmentation_training(cfg=seg.SegConfig(model_name="PSPNet"),
                                   **kw)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        seg.segmentation_training(cfg=seg.SegConfig(data_parallel="on"),
+    try:
+        out = seg.segmentation_training(
+            cfg=seg.SegConfig(data_parallel="on", epochs=1), **kw)
+        assert dist.get_world_size() == 1
+        assert len(out["log"]["curves"]["valid_iou"]) == 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with pytest.raises(ValueError, match="data_parallel"):
+        seg.segmentation_training(cfg=seg.SegConfig(data_parallel="many"),
                                   **kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
