@@ -15,7 +15,14 @@ batched serving with the frames split over 'data' (each rank runs
 `_predict_batch` on its frames with its rows of one global draw, and the
 positions are gathered), and the view-sharded `get_surfaces_batched`. It
 prints one `dryrun_multichip ok: ...` line. Called inside a group of n
-ranks it runs there; otherwise it starts one.
+ranks it runs there; otherwise it starts one. From the shell:
+
+    python -m autoposeestimation_tpu_torch.parallel.dryrun N [toy|product]
+    torchrun --nproc-per-node=N -m \
+        autoposeestimation_tpu_torch.parallel.dryrun N [toy|product]
+
+the first spawns the N ranks, the second runs one rank in each of
+torchrun's processes (the group from its environment).
 """
 from __future__ import annotations
 
@@ -218,3 +225,22 @@ def dryrun_multichip(n_ranks: int, shapes: str = "toy",
                      timeout_s=timeout_s,
                      threads=1 if backend == "gloo" else None,
                      workdir=workdir)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    import sys
+
+    args = list(sys.argv[1:] if argv is None else argv)
+    n, shapes = int(args[0]), (args[1] if len(args) > 1 else "toy")
+    if not dist.is_initialized() and pmesh.auto_mesh("auto") is not None:
+        try:        # torchrun's ranks: the group came from its environment
+            dryrun_multichip(n, shapes)
+        finally:
+            dist.destroy_process_group()
+    else:
+        dryrun_multichip(n, shapes)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
