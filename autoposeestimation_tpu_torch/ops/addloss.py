@@ -22,7 +22,9 @@ Training, the moments plus the gradient precursors in one pass:
   * `SymMoments`: the autograd Function whose backward is the linear
     combination of the precursors (`_sym_moments_bwd`, :480).
 `moments` and `moments_train` pick by device: the kernel for CUDA tensors,
-the plain version for CPU tensors.
+the plain version for CPU tensors. Their calls count in `utils/flops.py`
+as `moments_flops` (and a backward of `SymMoments` as
+`moments_grad_flops`) whichever implementation runs.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils import flops as flop_count
 from ..utils import transforms as T
 from . import kernel_build
 
@@ -255,12 +258,37 @@ def moments_train_cuda(rot: torch.Tensor, pred_t: torch.Tensor,
 moments_train_cuda.launches = 0
 
 
+def moments_flops(b: int, n: int, m: int) -> int:
+    """The FLOPs of one forward call at (B, N, M): the JAX package's CPU
+    count (XLA's cost analysis) of `sym_moments(use_pallas=False)` over a
+    batch of B, N candidates and M points: per candidate the (M, M)
+    expansion-form distances and their minimum (10 M^2), the transformed
+    model points, norms, mean and std (33 M + 49); per sample the targets'
+    norms (5 M). Equal to XLA's count where it reduces the minimum in
+    pairs (M = 4 ... 32, 64, 96, 128); at other M XLA's reduction splits
+    otherwise and counts up to 0.3 % more."""
+    return b * (n * (10 * m * m + 33 * m + 49) + 5 * m)
+
+
+def moments_grad_flops(b: int, n: int, m: int) -> int:
+    """The FLOPs of the backward at (B, N, M): the JAX package's CPU count
+    of the custom VJP's backward (`_sym_moments_bwd`, XLA path; its count
+    of the VJP less that of the forward): the argmin recompute and the
+    gradient of each candidate, 17 M^2 + 76 M + 184 a candidate, at the
+    same M as `moments_flops`."""
+    return b * n * (17 * m * m + 76 * m + 184)
+
+
 def _by_device(cuda_fn, plain_fn, rot, *args):
     if rot.device.type == "cuda":
-        return cuda_fn(rot, *args)
-    if rot.device.type == "cpu":
-        return plain_fn(rot, *args)
-    raise ValueError(f"unsupported device {rot.device}")
+        fn = cuda_fn
+    elif rot.device.type == "cpu":
+        fn = plain_fn
+    else:
+        raise ValueError(f"unsupported device {rot.device}")
+    b, n = rot.shape[:2]
+    return flop_count.hand_kernel(moments_flops(b, n, args[1].shape[1]), fn,
+                                  rot, *args)
 
 
 def moments(rot, pred_t, model, target):
@@ -287,11 +315,14 @@ class SymMoments(torch.autograd.Function):
     def forward(ctx, rot, pred_t, model, target, bf16):
         out = moments_train(rot, pred_t, model, target, bf16)
         ctx.save_for_backward(out[..., :24])
+        ctx.points = model.shape[1]
         return out[..., 24], torch.sqrt(torch.clamp(out[..., 25], min=0.0))
 
     @staticmethod
     def backward(ctx, g_dis, g_std):
         (pre,) = ctx.saved_tensors
+        b, n = pre.shape[:2]
+        flop_count.add(moments_grad_flops(b, n, ctx.points))
         a_t, b_t = pre[..., 0:3], pre[..., 3:6]
         a_r = pre[..., 6:15].unflatten(-1, (3, 3))
         b_r = pre[..., 15:24].unflatten(-1, (3, 3))

@@ -7,7 +7,7 @@
     it counts its calls in `nn_cuda.launches`,
   * `nn_plain`: plain PyTorch in the same arithmetic, chunked over queries.
 `nn` picks by device: the kernel for CUDA tensors, the plain version for
-CPU tensors.
+CPU tensors; its calls count in `utils/flops.py` as `nn_flops` either way.
 
 The function, as `_nn_kernel` computes it (not as `nn_xla` does):
   * d2 = (|q|^2 + |r|^2) - 2 q.r in f32, with |v|^2 = (x x + y y) + z z
@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import flops as flop_count
 from . import kernel_build
 
 KERNEL = "nn"
@@ -172,6 +173,15 @@ def nn_cuda(query: torch.Tensor, ref: torch.Tensor,
 nn_cuda.launches = 0
 
 
+def nn_flops(n: int, m: int, masked: bool = False) -> int:
+    """The FLOPs of one `nn` call of N queries and M references: the JAX
+    package's CPU count (XLA's cost analysis) of `nn_xla`, 19 M - 4 a
+    query and 5 M for the references' norms, plus N M for the validity
+    mask. XLA counts one 2,048-query block (its padding, and its loop's
+    body once), so its count equals this one at N = 2,048."""
+    return n * (19 * m - 4) + 5 * m + (n * m if masked else 0)
+
+
 def nn(query: torch.Tensor, ref: torch.Tensor,
        ref_valid: Optional[torch.Tensor] = None
        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -182,10 +192,13 @@ def nn(query: torch.Tensor, ref: torch.Tensor,
     if ref_valid is not None:
         ref_valid = ref_valid.to(torch.bool).contiguous()
     if query.device.type == "cuda":
-        return nn_cuda(query, ref, ref_valid)
-    if query.device.type == "cpu":
-        return nn_plain(query, ref, ref_valid)
-    raise ValueError(f"unsupported device {query.device}")
+        fn = nn_cuda
+    elif query.device.type == "cpu":
+        fn = nn_plain
+    else:
+        raise ValueError(f"unsupported device {query.device}")
+    flops = nn_flops(query.shape[0], ref.shape[0], ref_valid is not None)
+    return flop_count.hand_kernel(flops, fn, query, ref, ref_valid)
 
 
 def dist2_f64(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:

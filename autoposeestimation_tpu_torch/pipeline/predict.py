@@ -43,6 +43,7 @@ from ..train import checkpoints
 from ..utils import io
 from ..utils import transforms as T
 from ..utils.device import resolve_device
+from ..utils.timing import StageTimer
 
 
 class PredictionModels(NamedTuple):
@@ -320,19 +321,21 @@ def full_prediction(image: np.ndarray, depth: np.ndarray, meta: Dict,
 
     `image` uint8 RGB (H, W, 3); `depth` raw units (H, W); `meta` gives
     `intr` (Intrinsics or dict) and `depth_scale` (to meters).
-    'segmentation' times the whole frame on the device, 'pose_estimation'
-    the copy of its outputs to the host."""
-    t_start = time.perf_counter()
+    'segmentation' times the whole frame on the device (its upload, the
+    graph and the read of `found`), 'pose_estimation' the copy of its other
+    outputs to the host (`StageTimer`, as the JAX version)."""
+    timer = StageTimer()
     k, dev = len(models.classes), models.device
     with torch.inference_mode():
-        frame = _frame_inputs(image, depth, meta, dev)
-        u = _uniforms((k, models.num_points), dev, generator, uniforms)
-        t0 = time.perf_counter()
-        out = _predict_frame(models, *frame, u)
-        out["found"] = out["found"].cpu()
-        t1 = time.perf_counter()
-        out_dict = _materialize({name: out[name].cpu().numpy()
-                                 for name in _fetched(out, True)}, models)
+        with timer.stage("segmentation"):
+            frame = _frame_inputs(image, depth, meta, dev)
+            u = _uniforms((k, models.num_points), dev, generator, uniforms)
+            out = _predict_frame(models, *frame, u)
+            out["found"] = out["found"].cpu()
+        with timer.stage("pose_estimation"):
+            out_dict = _materialize({name: out[name].cpu().numpy()
+                                     for name in _fetched(out, True)},
+                                    models)
     if color_prediction:
         from ..main import COLOR_DICT
         from . import visualize as viz
@@ -345,10 +348,7 @@ def full_prediction(image: np.ndarray, depth: np.ndarray, meta: Dict,
         out_dict.update(viz.paint_prediction(image, out_dict, cd,
                                              meta["intr"], mp,
                                              with_bbox=with_bbox))
-    t2 = time.perf_counter()
-    out_dict["elapsed_times"] = {"segmentation": t1 - t0,
-                                 "pose_estimation": t2 - t1,
-                                 "total": t2 - t_start}
+    out_dict["elapsed_times"] = timer.total()
     return out_dict
 
 

@@ -123,6 +123,21 @@ Phases (any failure raises and the script exits non-zero):
      9's 160x128 configuration and `dryrun_multichip(1, "product")`; with
      two cards also `dryrun_multichip(2, "product")` on NCCL (one
      `parallel and out_stride {...}` line, with the ranks that ran).
+ 16. the train stages and serving prefixes, FLOP counts and profiling,
+     then the demo: the
+     seven train stages (`utils/train_stages.py`) at full width (5
+     objects, B=8, N=1000, M=500, crop 320, bf16) and the five serving
+     prefixes (`utils/serving_stages.py`) at the headline geometry at
+     seg_out_stride 1 and 4, each timed over 20 dependent calls between
+     CUDA events, with its FLOPs (`utils/flops.py`), TF/s and rows 1-2's
+     launches; the loss stages' kernels against their plain versions on
+     the stages' inputs; the counts beside the JAX package's
+     (`artifacts/flops_cache.json`, read as data), the convolution-bound
+     ones within 5 %; `maybe_profile` around one estimator step (its trace
+     names the training kernel); `scripts/train_multi_demo` at the
+     headline geometry cut to 8 views, 1 segmentation and 2 pose epochs,
+     then `attribute_serving` and `mask_iou` over 4 held-out frames (one
+     `stages and demo {...}` line).
 With `--nn-timing ROOT` it runs only phase 8's timing, of the port in the
 checkout at ROOT, and prints it as one JSON line: run it on two checkouts
 back to back on one card to compare them alike. `--train-timing ROOT` does
@@ -3962,6 +3977,345 @@ def parallel_one_rank(dev, tmp: str) -> dict:
     return report
 
 
+# --- phase 16: train stages, prefixes, FLOP counts, profiling, the demo -----
+
+STAGE_CHAIN = 20          # dependent calls timed per train stage and prefix
+# graphs whose count must be within FLOP_GATE of the JAX package's (the
+# convolution-bound ones; the others' gaps are elementwise work that XLA
+# counts and FlopCounterMode does not)
+FLOP_GATED = ("train_stage_pspnet_fwd", "train_stage_posenet_fwd",
+              "serving_prefix_seg", "serving_graph")
+FLOP_GATE = 0.05
+# the multi-object demo cut to fit the phase: the headline geometry
+# (640x480, 5 objects, 500 points, crop 160) with 8 views an object (of
+# 48), 1 segmentation epoch (of 10) and 2 pose epochs (of 120), then the
+# attribution and the mask IoU over 4 held-out frames (of 36)
+DEMO_VIEWS = 8
+DEMO_SEG_EPOCHS = 1
+DEMO_POSE_EPOCHS = 2
+DEMO_FRAMES = 4
+
+
+def chain_ms(step, carry, count: int):
+    """(ms per call, carry, out) of `count` dependent calls of
+    `step(carry, i)` between CUDA events, after one call that warms up."""
+    carry, out = step(carry, 0)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(1, count + 1):
+        carry, out = step(carry, i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / count, carry, out
+
+
+def jax_flop_counts() -> dict:
+    """The JAX package's counts of the benchmarked graphs, read as data
+    from `artifacts/flops_cache.json` (XLA's CPU cost analysis): name ->
+    FLOPs, for the entries whose config is the port's."""
+    from autoposeestimation_tpu_torch.utils import flops
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "artifacts", "flops_cache.json")
+    with open(path) as f:
+        table = json.load(f)
+    out = {}
+    for key, value in table.items():
+        name = key.split(":", 1)[0]
+        if key == name + ":" + json.dumps(flops.GRAPH_CONFIGS.get(name),
+                                          sort_keys=True):
+            out[name] = float(value)
+    return out
+
+
+def launch_counts():
+    from autoposeestimation_tpu_torch.ops import addloss
+
+    return addloss.moments_cuda.launches, addloss.moments_train_cuda.launches
+
+
+def flop_row(name: str, count: int, jax_counts: dict,
+             ms: float = None) -> dict:
+    """The graph's GFLOPs (and TF/s at `ms` a call) beside the JAX
+    package's count; a gated graph must be within FLOP_GATE of it."""
+    row = {"gflop": round(count / 1e9, 4)}
+    if ms is not None:
+        row["tflops"] = round(count / (ms * 1e-3) / 1e12, 3)
+    want = jax_counts.get(name)
+    check(want is not None or name not in FLOP_GATED,
+          f"{name}: no count of the JAX package")
+    if want is not None:
+        row["jax_gflop"] = round(want / 1e9, 4)
+        row["ratio"] = round(count / want, 4)
+        if name in FLOP_GATED:
+            check(abs(count / want - 1) <= FLOP_GATE,
+                  f"{name}: {count} FLOPs against the JAX package's {want}")
+    return row
+
+
+def stage_kernels_vs_plain(steps, carries) -> dict:
+    """Rows 1 and 2 at the loss stages' inputs (B=8, N=1000, M=500): each
+    kernel's output against its plain version on the same inputs, and the
+    stages' outputs through the kernels against the plain versions."""
+    from autoposeestimation_tpu_torch.ops import addloss
+    from autoposeestimation_tpu_torch.utils import flops
+
+    recorded = {"fwd": [], "train": []}
+    keys = {addloss.moments_cuda: "fwd", addloss.moments_train_cuda: "train"}
+    hand_kernel = flops.hand_kernel
+
+    def recording(count, fn, *args):
+        out = hand_kernel(count, fn, *args)
+        recorded[keys[fn]].append((args, out))
+        return out
+
+    outs = {}
+    with mock.patch.object(flops, "hand_kernel", recording):
+        for name in ("symloss_fwd", "symloss_fwd_bwd"):
+            outs[name] = steps[name](carries[name], 0)[1]
+    with mock.patch.object(addloss, "moments_cuda", addloss.moments_plain), \
+            mock.patch.object(addloss, "moments_train_cuda",
+                              addloss.moments_train_plain):
+        plain = {name: steps[name](carries[name], 0)[1]
+                 for name in ("symloss_fwd", "symloss_fwd_bwd")}
+    check(len(recorded["fwd"]) == 1 and len(recorded["train"]) == 1,
+          f"loss stages' kernel calls: {[len(v) for v in recorded.values()]}")
+    (args, (dis, var)), = recorded["fwd"]
+    want_dis, want_var = addloss.moments_plain(*args)
+    err_dis = (dis - want_dis).abs().max().item()
+    err_std = (var.clamp(min=0).sqrt()
+               - want_var.clamp(min=0).sqrt()).abs().max().item()
+    check(err_dis <= DIS_ATOL and err_std <= STD_ATOL,
+          f"symloss_fwd: sym_moments dis {err_dis}, std {err_std}")
+    (args, got), = recorded["train"]
+    want = addloss.moments_train_plain(*args)
+    m = args[2].shape[1]
+    err_tdis = (got[..., 24] - want[..., 24]).abs().max().item()
+    off = (got[..., :24] - want[..., :24]).abs().amax(dim=-1)
+    n_off = int((off > PRE_ATOL).sum().item())
+    check(err_tdis <= DIS_ATOL, f"symloss_fwd_bwd: dis {err_tdis}")
+    check(off.max().item() <= 4.0 / m and n_off <= max(1, off.numel() // 1000),
+          f"symloss_fwd_bwd: precursors {off.max().item()}, {n_off} "
+          f"candidates outside {PRE_ATOL}")
+    loss_err = abs(outs["symloss_fwd"].item() - plain["symloss_fwd"].item())
+    check(loss_err <= 1e-4, f"symloss_fwd loss: kernel against plain "
+          f"{loss_err}")
+    report = {"shape": list(args[0].shape[:2]) + [m],
+              "sym_moments": {"max_dis_err": err_dis,
+                              "max_std_err": err_std},
+              "sym_moments_train": {"max_dis_err": err_tdis,
+                                    "max_precursor_err": off.max().item(),
+                                    "outside_pre_atol": n_off},
+              "symloss_fwd_loss_err": loss_err,
+              "symloss_fwd_bwd_grad": [outs["symloss_fwd_bwd"].item(),
+                                       plain["symloss_fwd_bwd"].item()]}
+    print("stage kernels against plain " + json.dumps(report))
+    return report
+
+
+def train_stages_part(steps, carries, jax_counts: dict) -> dict:
+    """Every train stage at full width: its FLOPs (one call, counted),
+    then STAGE_CHAIN dependent calls timed, with rows 1-2's launches."""
+    from autoposeestimation_tpu_torch.utils import flops, train_stages
+
+    report = {}
+    for name in train_stages.TRAIN_STAGE_ORDER:
+        with flops.counting() as count:
+            carries[name], _ = steps[name](carries[name], 0)
+        fwd0, train0 = launch_counts()
+        ms, carries[name], out = chain_ms(steps[name], carries[name],
+                                          STAGE_CHAIN)
+        fwd, train = launch_counts()
+        check(bool(torch.isfinite(out).all().item()), f"{name}: {out}")
+        row = {"ms": round(ms, 4), **flop_row(
+            f"train_stage_{name}", count.total, jax_counts, ms),
+            "kernel_gflop": round(count.kernels / 1e9, 4),
+            "launches": {"sym_moments": fwd - fwd0,
+                         "sym_moments_train": train - train0}}
+        report[name] = row
+        print(f"train stage {name}: {json.dumps(row)}")
+    check(report["symloss_fwd"]["launches"]["sym_moments"] > 0
+          and report["symloss_fwd_bwd"]["launches"]["sym_moments_train"] > 0
+          and report["estimator_step"]["launches"]["sym_moments_train"] > 0,
+          "the loss stages did not launch rows 1-2")
+    return report
+
+
+def serving_prefixes_part(dev, jax_counts: dict) -> dict:
+    """Every prefix of the frame graph at the headline geometry, at
+    seg_out_stride 1 and 4: FLOPs, ms per call over STAGE_CHAIN dependent
+    calls, and each stage's cost as the difference of consecutive
+    prefixes."""
+    from autoposeestimation_tpu_torch.utils import flops, serving_stages
+
+    report = {}
+    for stride in (1, 4):
+        steps, models = serving_stages.build_prefixes(seg_out_stride=stride,
+                                                      device=dev)
+        suffix = "" if stride == 1 else "_u4"
+        rows, last = {}, 0.0
+        for name in serving_stages.PREFIX_ORDER:
+            with flops.counting() as count:
+                steps[name](serving_stages.initial_carry(dev), 0)
+            ms, _, out = chain_ms(steps[name],
+                                  serving_stages.initial_carry(dev),
+                                  STAGE_CHAIN)
+            check(out.numel() > 0, f"prefix {name}: empty output")
+            if out.is_floating_point():
+                check(bool(torch.isfinite(out).all().item()),
+                      f"prefix {name}: {out}")
+            rows[name] = {"ms": round(ms, 4),
+                          "stage_ms": round(ms - last, 4),
+                          "stage": serving_stages.STAGE_LABELS[name],
+                          **flop_row(f"serving_prefix_{name}{suffix}",
+                                     count.total, jax_counts, ms)}
+            last = ms
+            print(f"serving prefix {name} seg_out_stride={stride}: "
+                  f"{json.dumps(rows[name])}")
+        report[f"seg_out_stride_{stride}"] = rows
+        del steps, models
+    for name in ("serving_graph", "serving_graph_u4"):
+        report[name] = flop_row(name, flops.cached_flops(name, dev),
+                                jax_counts)
+    print("serving graphs " + json.dumps(
+        {k: report[k] for k in ("serving_graph", "serving_graph_u4")}))
+    return report
+
+
+def profile_part(steps, carries) -> dict:
+    """`maybe_profile` around one estimator step: its Chrome trace exists
+    and names the training kernel."""
+    import tempfile
+
+    from autoposeestimation_tpu_torch.utils import timing
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with timing.maybe_profile(tmp):
+            steps["estimator_step"](carries["estimator_step"], 1000)
+        path = os.path.join(tmp, "trace.json")
+        check(os.path.exists(path), "maybe_profile wrote no trace")
+        with open(path) as f:
+            trace = json.load(f)
+    kernels = [e for e in trace.get("traceEvents", [])
+               if e.get("cat") == "kernel"]
+    hits = [e for e in kernels if "sym_moments_train" in e.get("name", "")]
+    check(bool(hits), f"the trace names no sym_moments_train kernel "
+          f"({len(kernels)} kernel events)")
+    report = {"kernel_events": len(kernels),
+              "sym_moments_train_events": len(hits),
+              "sym_moments_train_us": round(sum(e.get("dur", 0)
+                                                for e in hits), 3)}
+    print("maybe_profile " + json.dumps(report))
+    return report
+
+
+def demo_part(dev, root: str) -> dict:
+    """The multi-object demo, cut down (DEMO_*), under a temporary --out,
+    then `attribute_serving` and `mask_iou` on its checkpoints."""
+    from autoposeestimation_tpu_torch.scripts import (attribute_serving,
+                                                      mask_iou,
+                                                      train_multi_demo)
+
+    out = os.path.join(root, "demo")
+    cuts = {"viewpoints": f"{DEMO_VIEWS} of 48",
+            "seg_epochs": f"{DEMO_SEG_EPOCHS} of 10",
+            "pose_epochs": f"{DEMO_POSE_EPOCHS} of 120",
+            "frames": f"{DEMO_FRAMES} of 36"}
+    fwd0, train0 = launch_counts()
+    t0 = time.perf_counter()
+    results = train_multi_demo.main([
+        "--out", out, "--viewpoints", str(DEMO_VIEWS),
+        "--seg-epochs", str(DEMO_SEG_EPOCHS),
+        "--pose-epochs", str(DEMO_POSE_EPOCHS)])
+    demo_s = time.perf_counter() - t0
+    fwd1, train1 = launch_counts()
+    check(os.path.exists(os.path.join(out, "demo_multi.json")),
+          "train_multi_demo wrote no artifact")
+    refine = os.path.exists(os.path.join(
+        out, "DenseFusion", "trained_models", "synth",
+        "pose_refine_model.npz"))
+    t1 = time.perf_counter()
+    attribution = attribute_serving.main([
+        "--out", out, "--frames", str(DEMO_FRAMES),
+        "--refine-iters", "2" if refine else "0"])
+    attribution_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    ious = mask_iou.main(["--out", out, "--family", "a",
+                          "--frames", str(DEMO_FRAMES)])
+    mask_iou_s = time.perf_counter() - t2
+    fwd2, train2 = launch_counts()
+    table = results["eval"]["with_refine" if results["eval"]["use_refine"]
+                            else "estimator_only"]
+    report = {
+        "cuts": cuts,
+        "seconds": {"train_multi_demo": round(demo_s, 2),
+                    **{stage: results[stage].get("seconds")
+                       for stage in ("segmentation", "pose_training",
+                                     "serving")},
+                    "attribute_serving": round(attribution_s, 2),
+                    "mask_iou": round(mask_iou_s, 2)},
+        "add_s_m": {c: table[c]["dis"] for c in table if c != "overall"},
+        "use_refine": results["eval"]["use_refine"],
+        "refine_checkpoint": refine,
+        "served_found": {c: row["found"] for c, row in
+                         results["serving"]["per_class"].items()},
+        "attribution_served_add_m": {
+            c: row[attribution["conditions"][0]]["add_mean_m"]
+            for c, row in attribution["per_class"].items()},
+        "mask_iou_component": {
+            s: {c: row["component_iou"] for c, row in table_s.items()}
+            for s, table_s in ious["per_stride"].items()},
+        "launches": {"sym_moments": fwd2 - fwd0,
+                     "sym_moments_train": train2 - train0,
+                     "demo_sym_moments_train": train1 - train0}}
+    check(report["launches"]["demo_sym_moments_train"] > 0
+          and fwd1 - fwd0 > 0, f"the demo launched no kernel: "
+          f"{report['launches']}")
+    for c, d in report["add_s_m"].items():
+        check(np.isfinite(d), f"demo ADD(-S) of {c}: {d}")
+    print("demo " + json.dumps(report))
+    return report
+
+
+def stages_and_demo_phase(dev):
+    """Phase 16: the train stages and serving prefixes at full width,
+    their FLOPs against the JAX package's counts, `maybe_profile`, and the
+    cut-down multi-object demo with its attribution. Returns the launches
+    of (sym_moments, sym_moments_train) in its main path."""
+    import tempfile
+
+    from autoposeestimation_tpu_torch.ops import addloss
+    from autoposeestimation_tpu_torch.utils import train_stages
+
+    t0 = time.perf_counter()
+    jax_counts = jax_flop_counts()
+    card = nvidia_smi("name,power.limit")
+    # defaults: 5 objects, B=8, N=1000, M=500, crop 320, bf16
+    steps, carries = train_stages.build_stages(device=dev)
+    build_s = time.perf_counter() - t0
+    compared = stage_kernels_vs_plain(steps, carries)
+    # the main path: counts from 0 just before, read just after
+    addloss.moments_cuda.launches = addloss.moments_train_cuda.launches = 0
+    stages = train_stages_part(steps, carries, jax_counts)
+    prefixes = serving_prefixes_part(dev, jax_counts)
+    prof = profile_part(steps, carries)
+    del steps, carries
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        demo = demo_part(dev, tmp)
+    launches = launch_counts()
+    report = {"card": card, "build_s": round(build_s, 2),
+              "train_stages": stages, "kernels_vs_plain": compared,
+              "serving_prefixes": prefixes, "maybe_profile": prof,
+              "demo": demo, "launches": {"sym_moments": launches[0],
+                                         "sym_moments_train": launches[1]},
+              "phase_s": round(time.perf_counter() - t0, 2)}
+    print("stages and demo " + json.dumps(report))
+    check(min(launches) > 0, f"phase 16: launches {launches}")
+    return launches
+
 def tree_leaves(tree):
     """A flax tree's leaves in a fixed order."""
     if isinstance(tree, dict):
@@ -4050,6 +4404,7 @@ def main() -> int:
         nn_calls["offline_labeling"] = labeling_phase(dev)
         shells_fwd, shells_train = host_shells_phase(dev, pose_root)
     par_fwd, par_train, nn_calls["parallel"] = parallel_phase(dev)
+    stages_fwd, stages_train = stages_and_demo_phase(dev)
     # each call is two kernels, a scan and its merge
     nn_kernel["calls_by_phase"] = nn_calls
     nn_kernel["calls"] = sum(nn_calls.values())
@@ -4058,13 +4413,16 @@ def main() -> int:
     kernel["launches_by_phase"] = {"evaluation": kernel["launches"],
                                    "dataset_training": ds_fwd,
                                    "host_shells": shells_fwd,
-                                   "parallel": par_fwd}
-    kernel["launches"] += ds_fwd + shells_fwd + par_fwd
+                                   "parallel": par_fwd,
+                                   "stages_and_demo": stages_fwd}
+    kernel["launches"] += ds_fwd + shells_fwd + par_fwd + stages_fwd
     train_kernel["launches_by_phase"] = {"training": train_kernel["launches"],
                                          "dataset_training": ds_train,
                                          "host_shells": shells_train,
-                                         "parallel": par_train}
-    train_kernel["launches"] += ds_train + shells_train + par_train
+                                         "parallel": par_train,
+                                         "stages_and_demo": stages_train}
+    train_kernel["launches"] += (ds_train + shells_train + par_train
+                                 + stages_train)
     print(json.dumps({"kernels": [kernel, train_kernel, nn_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,7 +34,7 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     count, loaded = res.stdout.split(" ", 1)
-    assert int(count) >= 67
+    assert int(count) >= 82
     assert loaded.strip() == "[]"
 
 
@@ -58,7 +58,7 @@ def test_port_imports_without_pil_or_matplotlib():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     count, loaded = res.stdout.split(" ", 1)
-    assert int(count) >= 67
+    assert int(count) >= 82
     assert loaded.strip() == "[]"
 
 
@@ -100,6 +100,64 @@ def test_segmentation_slice_without_jax_pil_or_a_card(tmp_path):
                                                CUDA_VISIBLE_DEVICES=""))
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[True, True]"
+
+
+NEW_MODULES = ["utils.flops", "utils.train_stages", "utils.serving_stages",
+               "utils.timing", "scripts", "scripts.stream_logs",
+               "scripts.view_data", "scripts.train_synthetic_demo",
+               "scripts.train_multi_demo", "scripts.attribute_serving",
+               "scripts.mask_iou", "scripts.gate_symbf16",
+               "scripts.train_bench_seg"]
+
+STAGES_PROBE = """
+import importlib, sys
+for blocked in ("jax", "jaxlib", "flax", "optax", "autoposeestimation_tpu",
+                "PIL", "matplotlib", "pyrealsense2", "cv2", "yaml"):
+    sys.modules[blocked] = None
+import torch
+assert not torch.cuda.is_available()
+port = "autoposeestimation_tpu_torch."
+for name in sys.argv[2:]:
+    importlib.import_module(port + name)
+from autoposeestimation_tpu_torch.utils import (flops, serving_stages,
+                                                train_stages)
+from autoposeestimation_tpu_torch.scripts import (
+    attribute_serving, mask_iou, train_bench_seg, train_multi_demo,
+    train_synthetic_demo)
+out = sys.argv[1]
+raised = []
+for call in (
+        lambda: train_stages.build_stages(num_obj=1, bs=2, n=8, m=8, crop=32),
+        lambda: serving_stages.build_prefixes(num_classes=1, num_points=8,
+                                              crop=32, h=48, w=64),
+        lambda: flops.count_flops("train_stage_symloss_fwd"),
+        lambda: train_multi_demo.main(["--out", out]),
+        lambda: train_synthetic_demo.main(["--out", out]),
+        lambda: attribute_serving.main(["--out", out]),
+        lambda: mask_iou.main(["--out", out]),
+        lambda: train_bench_seg.main(["--out", out])):
+    try:
+        call()
+    except RuntimeError as exc:
+        raised.append("device='cpu'" in str(exc))
+import os
+print(raised, os.listdir(out))
+"""
+
+
+def test_stages_flops_and_scripts_without_jax_or_a_card(tmp_path):
+    """This slice's modules (the train stages, the serving prefixes, the
+    FLOP counts, the timing utilities and every script) import with JAX,
+    the JAX package and the host extras blocked; their entry points default to cuda, so
+    without a card each raises, naming device='cpu', before it writes
+    anything."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", STAGES_PROBE, str(tmp_path),
+                          *NEW_MODULES], cwd=root, capture_output=True,
+                         text=True, timeout=300,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[" + ", ".join(["True"] * 8) + "] []"
 
 
 @pytest.mark.cuda
