@@ -34,7 +34,7 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     count, loaded = res.stdout.split(" ", 1)
-    assert int(count) >= 82
+    assert int(count) >= 84
     assert loaded.strip() == "[]"
 
 
@@ -58,7 +58,7 @@ def test_port_imports_without_pil_or_matplotlib():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     count, loaded = res.stdout.split(" ", 1)
-    assert int(count) >= 82
+    assert int(count) >= 84
     assert loaded.strip() == "[]"
 
 
@@ -158,6 +158,41 @@ def test_stages_flops_and_scripts_without_jax_or_a_card(tmp_path):
                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[" + ", ".join(["True"] * 8) + "] []"
+
+
+ENTRY_PROBE = """
+import sys
+for blocked in ("jax", "jaxlib", "flax", "optax", "autoposeestimation_tpu",
+                "PIL", "matplotlib", "pyrealsense2", "cv2", "yaml"):
+    sys.modules[blocked] = None
+from autoposeestimation_tpu_torch import graft_entry
+from autoposeestimation_tpu_torch.parallel import dryrun, trainers
+try:
+    graft_entry.entry()
+    raised = False
+except RuntimeError as exc:
+    raised = "device='cpu'" in str(exc)
+try:
+    trainers.run_trainers("toy", 1)
+    raised_trainers = False
+except RuntimeError as exc:
+    raised_trainers = "device='cpu'" in str(exc)
+print(raised, raised_trainers,
+      graft_entry.dryrun_multichip is dryrun.dryrun_multichip)
+"""
+
+
+def test_graft_entry_without_jax_or_a_card():
+    """`graft_entry` (the counterpart of `__graft_entry__.py`) and
+    `parallel/trainers.py` import with JAX, the JAX package and the host
+    extras blocked; without a card `entry()` and `run_trainers()` raise,
+    naming device='cpu', and `dryrun_multichip` is the dry run's."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", ENTRY_PROBE], cwd=root,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["True", "True", "True"]
 
 
 @pytest.mark.cuda
