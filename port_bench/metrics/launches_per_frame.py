@@ -1,0 +1,2 @@
+"""Kernels launched a served frame (profiler)."""
+from harness.readers import launches_per_unit as read  # noqa: F401
