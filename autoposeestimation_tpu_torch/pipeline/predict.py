@@ -43,7 +43,7 @@ from ..train import checkpoints
 from ..utils import io
 from ..utils import transforms as T
 from ..utils.device import resolve_device
-from ..utils.timing import StageTimer
+from ..utils.timing import StageTimer, count, span
 
 
 class PredictionModels(NamedTuple):
@@ -136,15 +136,17 @@ def _class_mask(score_plane, pred_arg, cls_id, min_count: int = 100,
 
 def _pose_stage(models: PredictionModels, crops, clouds, chooses, obj_idx,
                 refine_iters: int):
-    pred_r, pred_t, pred_c, emb = models.posenet(crops, clouds, chooses,
-                                                 obj_idx)
-    quat, trans = losses.estimator_prediction(pred_r, pred_t, pred_c, clouds,
-                                              topk=models.agg_topk)
-    new_points = losses.rebase_points(quat, trans, clouds)
-    for _ in range(refine_iters):
-        dr, dt = models.refiner(new_points, emb, obj_idx)
-        quat, trans = losses.compose_refined(dr, dt, quat, trans)
+    with span("graph.pose"):
+        pred_r, pred_t, pred_c, emb = models.posenet(crops, clouds, chooses,
+                                                     obj_idx)
+        quat, trans = losses.estimator_prediction(
+            pred_r, pred_t, pred_c, clouds, topk=models.agg_topk)
         new_points = losses.rebase_points(quat, trans, clouds)
+    with span("graph.refine"):
+        for _ in range(refine_iters):
+            dr, dt = models.refiner(new_points, emb, obj_idx)
+            quat, trans = losses.compose_refined(dr, dt, quat, trans)
+            new_points = losses.rebase_points(quat, trans, clouds)
     return quat, trans
 
 
@@ -157,20 +159,23 @@ def _predict_frame(models: PredictionModels, image, depth, intr,
     h, w = depth.shape
     k = len(models.classes)
     stride = models.seg_model.out_stride
-    probs, pred_arg = _segment(models.seg_model, img)
-    cls_ids = torch.arange(1, k + 1, device=img.device)
-    masks, found, converged = _class_mask(
-        probs[1:k + 1], pred_arg, cls_ids, cca_scale=models.cca_scale,
-        cca_sweeps=models.cca_sweeps, cca_rule=models.cca_rule,
-        seg_stride=stride, full_hw=(h, w))
+    with span("graph.segment"):
+        probs, pred_arg = _segment(models.seg_model, img)
+    with span("graph.cca"):
+        cls_ids = torch.arange(1, k + 1, device=img.device)
+        masks, found, converged = _class_mask(
+            probs[1:k + 1], pred_arg, cls_ids, cca_scale=models.cca_scale,
+            cca_sweeps=models.cca_sweeps, cca_rule=models.cca_rule,
+            seg_stride=stride, full_hw=(h, w))
 
-    r0, c0, win = proj.zoom_window_bbox(masks, models.crop, h, w)
-    clouds, chooses, counts = proj.backproject_choose_zoom(
-        depth, masks, intr, depth_scale, r0, c0, win, models.crop,
-        models.num_points, uniforms)
-    crops = normalize_imagenet(
-        proj.resample_window(img, r0, c0, win, models.crop))
-    found = found & (counts > 0)
+    with span("graph.crop"):
+        r0, c0, win = proj.zoom_window_bbox(masks, models.crop, h, w)
+        clouds, chooses, counts = proj.backproject_choose_zoom(
+            depth, masks, intr, depth_scale, r0, c0, win, models.crop,
+            models.num_points, uniforms)
+        crops = normalize_imagenet(
+            proj.resample_window(img, r0, c0, win, models.crop))
+        found = found & (counts > 0)
 
     obj_idx = torch.arange(k, device=img.device)
     quat, trans = _pose_stage(models, crops, clouds, chooses, obj_idx,
@@ -205,24 +210,28 @@ def _predict_batch(models: PredictionModels, images, depths, intr,
     # are not channels-last): at one layout the f32 logits of a frame do
     # not depend on the batch, while channels-last algorithms round
     # otherwise and flip argmax pixels
-    logits = models.seg_model(normalize_imagenet(imgs).contiguous())
-    probs = torch.softmax(logits, dim=1)
-    pred_arg = torch.argmax(probs, dim=1)                # (B, H/s, W/s)
-    cls_ids = torch.arange(1, k + 1, device=dev)
-    masks, found, converged = _class_mask(
-        probs[:, 1:k + 1], pred_arg[:, None], cls_ids,
-        cca_scale=models.cca_scale, cca_sweeps=models.cca_sweeps,
-        cca_rule=models.cca_rule, seg_stride=stride, full_hw=(h, w))
-    masks, found = masks.flatten(0, 1), found.flatten(0, 1)  # B*K lanes
+    with span("graph.segment"):
+        logits = models.seg_model(normalize_imagenet(imgs).contiguous())
+        probs = torch.softmax(logits, dim=1)
+        pred_arg = torch.argmax(probs, dim=1)            # (B, H/s, W/s)
+    with span("graph.cca"):
+        cls_ids = torch.arange(1, k + 1, device=dev)
+        masks, found, converged = _class_mask(
+            probs[:, 1:k + 1], pred_arg[:, None], cls_ids,
+            cca_scale=models.cca_scale, cca_sweeps=models.cca_sweeps,
+            cca_rule=models.cca_rule, seg_stride=stride, full_hw=(h, w))
+        masks, found = masks.flatten(0, 1), found.flatten(0, 1)  # B*K lanes
 
-    lane_frame = torch.arange(b, device=dev).repeat_interleave(k)
-    r0, c0, win = proj.zoom_window_bbox(masks, models.crop, h, w)
-    clouds, chooses, counts = proj.backproject_choose_zoom(
-        depths, masks, intr, depth_scale, r0, c0, win, models.crop,
-        models.num_points, uniforms.reshape(b * k, -1), frame=lane_frame)
-    crops = normalize_imagenet(proj.resample_window(
-        imgs, r0, c0, win, models.crop, frame=lane_frame))
-    found = found & (counts > 0)
+    with span("graph.crop"):
+        lane_frame = torch.arange(b, device=dev).repeat_interleave(k)
+        r0, c0, win = proj.zoom_window_bbox(masks, models.crop, h, w)
+        clouds, chooses, counts = proj.backproject_choose_zoom(
+            depths, masks, intr, depth_scale, r0, c0, win, models.crop,
+            models.num_points, uniforms.reshape(b * k, -1),
+            frame=lane_frame)
+        crops = normalize_imagenet(proj.resample_window(
+            imgs, r0, c0, win, models.crop, frame=lane_frame))
+        found = found & (counts > 0)
 
     obj_idx = torch.arange(k, device=dev).repeat(b)
     quat, trans = _pose_stage(models, crops, clouds, chooses, obj_idx,
@@ -323,31 +332,41 @@ def full_prediction(image: np.ndarray, depth: np.ndarray, meta: Dict,
     `intr` (Intrinsics or dict) and `depth_scale` (to meters).
     'segmentation' times the whole frame on the device (its upload, the
     graph and the read of `found`), 'pose_estimation' the copy of its other
-    outputs to the host (`StageTimer`, as the JAX version)."""
+    outputs to the host (`StageTimer`, as the JAX version).
+
+    Spans (`utils/timing.py`), one unit 'frame': 'frame.compute' ('frame.
+    upload', the graph's 'graph.*', 'frame.wait' on `found`) and 'frame.
+    readback'; each blocking read counts one 'host_syncs'."""
     timer = StageTimer()
     k, dev = len(models.classes), models.device
-    with torch.inference_mode():
-        with timer.stage("segmentation"):
-            frame = _frame_inputs(image, depth, meta, dev)
-            u = _uniforms((k, models.num_points), dev, generator, uniforms)
-            out = _predict_frame(models, *frame, u)
-            out["found"] = out["found"].cpu()
-        with timer.stage("pose_estimation"):
-            out_dict = _materialize({name: out[name].cpu().numpy()
-                                     for name in _fetched(out, True)},
-                                    models)
-    if color_prediction:
-        from ..main import COLOR_DICT
-        from . import visualize as viz
+    with span("frame", unit=True):
+        with torch.inference_mode():
+            with timer.stage("segmentation", span="frame.compute"):
+                with span("frame.upload"):
+                    frame = _frame_inputs(image, depth, meta, dev)
+                    u = _uniforms((k, models.num_points), dev, generator,
+                                  uniforms)
+                out = _predict_frame(models, *frame, u)
+                with span("frame.wait"):
+                    out["found"] = out["found"].cpu()
+                    count("host_syncs")
+            with timer.stage("pose_estimation", span="frame.readback"):
+                names = _fetched(out, True)
+                host = {name: out[name].cpu().numpy() for name in names}
+                count("host_syncs", len(names) - 1)   # `found`: read above
+                out_dict = _materialize(host, models)
+        if color_prediction:
+            from ..main import COLOR_DICT
+            from . import visualize as viz
 
-        colors = list(COLOR_DICT.values())
-        cd = color_dict or {cls: colors[i % len(colors)]
-                            for i, cls in enumerate(models.classes)}
-        mp = {cls: models.model_points[i].cpu().numpy()
-              for i, cls in enumerate(models.classes)}
-        out_dict.update(viz.paint_prediction(image, out_dict, cd,
-                                             meta["intr"], mp,
-                                             with_bbox=with_bbox))
+            colors = list(COLOR_DICT.values())
+            cd = color_dict or {cls: colors[i % len(colors)]
+                                for i, cls in enumerate(models.classes)}
+            mp = {cls: models.model_points[i].cpu().numpy()
+                  for i, cls in enumerate(models.classes)}
+            out_dict.update(viz.paint_prediction(image, out_dict, cd,
+                                                 meta["intr"], mp,
+                                                 with_bbox=with_bbox))
     out_dict["elapsed_times"] = timer.total()
     return out_dict
 
@@ -383,7 +402,12 @@ def serve_stream(frames, models: PredictionModels, in_flight: int = 4,
     and only then is its buffer set filled again. Everything runs on the
     current stream, so no tensor is reused while a copy still reads it: an
     upload stream would overlap ~0.1 ms of copies a frame with compute and
-    is not worth its ordering."""
+    is not worth its ordering.
+
+    Spans (`utils/timing.py`), one unit a call: 'stream.dispatch' (with
+    'stream.upload' and the graph's 'graph.*'; attributes `frames`,
+    `batch`, `in_flight`), then 'stream.wait' on its event (one
+    'host_syncs') and a 'stream.readback' for each frame."""
     dev = models.device
     k, npt = len(models.classes), models.num_points
     batch = max(1, batch)
@@ -414,16 +438,19 @@ def serve_stream(frames, models: PredictionModels, in_flight: int = 4,
         nonlocal dispatched
         slot = ring[dispatched % len(ring)]
         dispatched += 1
-        with torch.inference_mode():
-            images = upload(slot, "images",
-                            [np.asarray(im, np.uint8) for im, _, _ in items])
-            depths = upload(slot, "depths",
-                            [np.asarray(d) for _, d, _ in items])
-            if draws is not None:
-                u = upload(slot, "uniforms", [v for _, _, v in items])
-            else:
-                u = torch.rand((batch, k, npt), generator=generator,
-                               device=generator.device).to(dev)
+        with span("stream.dispatch", unit=True, frames=len(items),
+                  batch=batch, in_flight=len(pending)) as call, \
+                torch.inference_mode():
+            with span("stream.upload"):
+                images = upload(slot, "images", [np.asarray(im, np.uint8)
+                                                 for im, _, _ in items])
+                depths = upload(slot, "depths",
+                                [np.asarray(d) for _, d, _ in items])
+                if draws is not None:
+                    u = upload(slot, "uniforms", [v for _, _, v in items])
+                else:
+                    u = torch.rand((batch, k, npt), generator=generator,
+                                   device=generator.device).to(dev)
             intr, scale = small[key]
             if batch == 1:
                 out = {name: t[None] for name, t in _predict_frame(
@@ -433,21 +460,29 @@ def serve_stream(frames, models: PredictionModels, in_flight: int = 4,
                 out = _predict_batch(models, images, depths, intr, scale, u)
             host = {name: out[name].to("cpu", non_blocking=True)
                     for name in _fetched(out, want_masks)}
-        event = None
-        if on_card:
-            event = torch.cuda.Event()
-            event.record()
+            event = None
+            if on_card:
+                event = torch.cuda.Event()
+                event.record()
         # `out` stays referenced until the results are read
-        return host, len(items), event, out
+        return host, len(items), event, out, call.unit
 
     def collect():
-        host, n_valid, event, _ = pending.popleft()
-        if event is not None:
-            event.synchronize()
-        arrays = {name: t.numpy() for name, t in host.items()}
+        """A call's results, each frame's readback a span closed before
+        its `yield`."""
+        host, n_valid, event, _, unit = pending.popleft()
+        with span("stream.wait", unit=unit):
+            if event is not None:
+                event.synchronize()
+                count("host_syncs")
+        arrays = {}
         for i in range(n_valid):
-            yield _materialize({name: a[i] for name, a in arrays.items()},
-                               models, want_masks)
+            with span("stream.readback", unit=unit):
+                arrays = arrays or {name: t.numpy()
+                                    for name, t in host.items()}
+                result = _materialize({name: a[i] for name, a in
+                                       arrays.items()}, models, want_masks)
+            yield result
 
     def submit(items, key):
         while len(pending) > in_flight:   # frees the buffer set to reuse

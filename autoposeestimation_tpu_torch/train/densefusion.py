@@ -49,7 +49,7 @@ from ..pipeline.visualize import pointcloud2image
 from ..utils import io
 from ..utils import transforms as T
 from ..utils.device import resolve_device
-from ..utils.timing import JsonCurveLog
+from ..utils.timing import JsonCurveLog, span
 from . import checkpoints
 
 
@@ -113,6 +113,14 @@ class ClippedAdam:
 
     @torch.no_grad()
     def step(self, mesh: Optional[pmesh.Mesh] = None) -> torch.Tensor:
+        with span("step.optimizer"):
+            with span("optimizer.clip"):
+                gnorm = self._clip(mesh)
+            with span("optimizer.adam"):
+                self.adam.step()
+        return gnorm
+
+    def _clip(self, mesh: Optional[pmesh.Mesh]) -> torch.Tensor:
         if mesh is not None:
             pmesh.all_reduce_grads(mesh, self.params)
         live = [p for p in self.params if p.grad is not None]
@@ -131,7 +139,6 @@ class ClippedAdam:
             scale = torch.where(gnorm < self.clip, 1.0, self.clip / gnorm)
             for g in grads:
                 g.mul_(scale)
-        self.adam.step()
         return gnorm
 
 
@@ -186,21 +193,27 @@ def estimator_step(posenet: PoseNet, optimizer: ClippedAdam,
                    ) -> Dict[str, torch.Tensor]:
     """One estimator phase step with dropout from `generator`. Returns
     {loss, dis, gnorm}, gnorm the gradient norm before the clip. With
-    `mesh` every rank passes the same global batch and takes its rows."""
-    optimizer.zero_grad()
-    batch, rows = _local(mesh, batch)
-    pred_r, pred_t, pred_c, _ = posenet(
-        batch["img"], batch["cloud"], batch["choose"], batch["obj_idx"],
-        train=True, generator=generator, rows=rows)
-    out = losses.pose_loss(pred_r, pred_t, pred_c, batch["target"],
-                           batch["model_points"], batch["cloud"],
-                           batch["is_sym"], w=w, with_sym=with_sym,
-                           sym_bf16=sym_bf16)
-    out.loss.backward()
-    gnorm = optimizer.step(mesh)
-    return {"loss": pmesh.data_mean(mesh, out.loss.detach()),
-            "dis": pmesh.data_mean(mesh, out.dis.detach().mean()),
-            "gnorm": gnorm}
+    `mesh` every rank passes the same global batch and takes its rows.
+    Spans (`utils/timing.py`): one unit 'step' (kind 'estimator') of
+    'step.forward', 'step.backward' and `ClippedAdam.step`'s
+    'step.optimizer'."""
+    with span("step", unit=True, kind="estimator"):
+        with span("step.forward"):
+            optimizer.zero_grad()
+            batch, rows = _local(mesh, batch)
+            pred_r, pred_t, pred_c, _ = posenet(
+                batch["img"], batch["cloud"], batch["choose"],
+                batch["obj_idx"], train=True, generator=generator, rows=rows)
+            out = losses.pose_loss(pred_r, pred_t, pred_c, batch["target"],
+                                   batch["model_points"], batch["cloud"],
+                                   batch["is_sym"], w=w, with_sym=with_sym,
+                                   sym_bf16=sym_bf16)
+        with span("step.backward"):
+            out.loss.backward()
+        gnorm = optimizer.step(mesh)
+        return {"loss": pmesh.data_mean(mesh, out.loss.detach()),
+                "dis": pmesh.data_mean(mesh, out.dis.detach().mean()),
+                "gnorm": gnorm}
 
 
 def refiner_step(posenet: PoseNet, refiner: PoseRefineNet,
@@ -210,26 +223,33 @@ def refiner_step(posenet: PoseNet, refiner: PoseRefineNet,
                  ) -> Dict[str, torch.Tensor]:
     """One refiner phase step: the frozen estimator's forward, then
     `iteration` rebased refiner passes whose mean distances are summed into
-    one loss. Returns {dis}, the last pass's mean distance."""
-    batch, _ = _local(mesh, batch)
-    with torch.no_grad():
-        pred_r, pred_t, pred_c, emb = posenet(
-            batch["img"], batch["cloud"], batch["choose"], batch["obj_idx"])
-        est = losses.pose_loss(pred_r, pred_t, pred_c, batch["target"],
-                               batch["model_points"], batch["cloud"],
-                               batch["is_sym"], w=w, with_sym=with_sym)
-    optimizer.zero_grad()
-    new_points, new_target = est.new_points, est.new_target
-    total = 0.0
-    for _ in range(iteration):
-        dr, dt = refiner(new_points, emb, batch["obj_idx"])
-        mean_dis, dis, new_points, new_target = losses.refine_loss(
-            dr, dt, new_target, batch["model_points"], new_points,
-            batch["is_sym"], with_sym=with_sym)
-        total = total + mean_dis
-    total.backward()
-    optimizer.step(mesh)
-    return {"dis": pmesh.data_mean(mesh, dis.detach().mean())}
+    one loss. Returns {dis}, the last pass's mean distance. Spans as
+    `estimator_step`'s, kind 'refiner'."""
+    with span("step", unit=True, kind="refiner"):
+        with span("step.forward"):
+            batch, _ = _local(mesh, batch)
+            with torch.no_grad():
+                pred_r, pred_t, pred_c, emb = posenet(
+                    batch["img"], batch["cloud"], batch["choose"],
+                    batch["obj_idx"])
+                est = losses.pose_loss(pred_r, pred_t, pred_c,
+                                       batch["target"],
+                                       batch["model_points"], batch["cloud"],
+                                       batch["is_sym"], w=w,
+                                       with_sym=with_sym)
+            optimizer.zero_grad()
+            new_points, new_target = est.new_points, est.new_target
+            total = 0.0
+            for _ in range(iteration):
+                dr, dt = refiner(new_points, emb, batch["obj_idx"])
+                mean_dis, dis, new_points, new_target = losses.refine_loss(
+                    dr, dt, new_target, batch["model_points"], new_points,
+                    batch["is_sym"], with_sym=with_sym)
+                total = total + mean_dis
+        with span("step.backward"):
+            total.backward()
+        optimizer.step(mesh)
+        return {"dis": pmesh.data_mean(mesh, dis.detach().mean())}
 
 
 @dataclass

@@ -14,7 +14,8 @@
     The train stages and serving prefixes are held the same way in
     `test_torch_stage_builders.py`.
   * `cached_flops` keys its file by name and config; `StageTimer`'s keys,
-    `JsonCurveLog.set` and `maybe_profile`'s trace.
+    `JsonCurveLog.set` and `maybe_profile`'s trace, which carries the
+    program's spans.
 """
 import json
 import os
@@ -256,12 +257,21 @@ def test_curve_log_set_writes_what_the_jax_one_writes(tmp_path):
     assert logs[0] == logs[1]
 
 
-def test_maybe_profile_writes_a_trace(tmp_path):
+def test_maybe_profile_writes_a_trace(tmp_path, two_threads):  # noqa: F811
     with timing.maybe_profile(None):
         pass
     assert not os.path.exists(tmp_path / "trace")
+    mp = np.zeros((1, 10, 3), np.float32)
+    models = predict.build_models(1, mp, ("ball",), num_points=16, crop=32,
+                                  dtype=torch.float32, device="cpu")
+    meta = {"intr": Intrinsics(width=64, height=48, ppx=32, ppy=24, fx=60,
+                               fy=60), "depth_scale": 0.001}
     with timing.maybe_profile(str(tmp_path / "trace")):
         torch.ones(64, 64) @ torch.ones(64, 64)
+        predict.full_prediction(np.zeros((48, 64, 3), np.uint8),
+                                np.full((48, 64), 500.0), meta, models,
+                                generator=torch.Generator().manual_seed(0))
     trace = json.load(open(tmp_path / "trace" / "trace.json"))
     names = {e.get("name") for e in trace["traceEvents"]}
     assert any("mm" in str(n) for n in names)
+    assert "graph.segment" in names      # the program's spans
