@@ -19,16 +19,28 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 BN_EPS = 1e-5  # flax BatchNorm's default epsilon
 
+_IMAGENET_STATS: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _imagenet_stats(device: torch.device):
+    """(mean, std), each f32 (3, 1, 1) on `device`, uploaded once a device
+    and kept there: a frame graph captured on the card reads them where
+    they lie on every replay (a copy captured from a temporary host buffer
+    would read freed memory)."""
+    stats = _IMAGENET_STATS.get(device)
+    if stats is None:
+        with torch.inference_mode(False):   # usable by autograd later
+            t = torch.tensor((IMAGENET_MEAN, IMAGENET_STD),
+                             dtype=torch.float32)[:, :, None, None]
+            stats = _IMAGENET_STATS[device] = tuple(t.to(device))
+    return stats
+
 
 def normalize_imagenet(img: torch.Tensor) -> torch.Tensor:
     """uint8-range RGB (..., 3, H, W) -> normalized f32 (ToTensor+Normalize)."""
     x = img.to(torch.float32) / 255.0
-    stats = torch.tensor((IMAGENET_MEAN, IMAGENET_STD), dtype=torch.float32)
-    if x.is_cuda:
-        # an asynchronous copy from pinned memory: a pageable one waits for
-        # the stream, which would stall the serving stream's dispatch
-        stats = stats.pin_memory().to(x.device, non_blocking=True)
-    return (x - stats[0, :, None, None]) / stats[1, :, None, None]
+    mean, std = _imagenet_stats(x.device)
+    return (x - mean) / std
 
 
 def _interp_1d_weights(out_size: int, in_size: int, align_corners: bool,

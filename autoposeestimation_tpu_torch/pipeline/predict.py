@@ -44,6 +44,7 @@ from ..utils import io
 from ..utils import transforms as T
 from ..utils.device import resolve_device
 from ..utils.timing import StageTimer, count, span
+from . import frame_graphs
 
 
 class PredictionModels(NamedTuple):
@@ -256,19 +257,24 @@ def _intr_vec(meta: Dict) -> np.ndarray:
         [intr["fx"], intr["fy"], intr["ppx"], intr["ppy"]], np.float32))
 
 
+def _given_uniforms(shape, uniforms) -> torch.Tensor:
+    """Given draws as an f32 tensor (on the host unless given elsewhere),
+    checked against `shape`."""
+    u = (uniforms.to(torch.float32) if isinstance(uniforms, torch.Tensor)
+         else torch.from_numpy(np.array(uniforms, np.float32)))
+    if tuple(u.shape) != tuple(shape):
+        raise ValueError(f"uniforms must be {tuple(shape)}: "
+                         f"{tuple(u.shape)}")
+    return u
+
+
 def _uniforms(shape, device: torch.device,
               generator: Optional[torch.Generator],
               uniforms) -> torch.Tensor:
-    """The point-selection draws: given, or from `generator` (seeded from
-    the clock when None)."""
+    """The point-selection draws on `device`: given, or from `generator`
+    (seeded from the clock when None)."""
     if uniforms is not None:
-        if not isinstance(uniforms, torch.Tensor):
-            uniforms = np.array(uniforms, np.float32)
-        u = torch.as_tensor(uniforms, dtype=torch.float32, device=device)
-        if tuple(u.shape) != tuple(shape):
-            raise ValueError(f"uniforms must be {tuple(shape)}: "
-                             f"{tuple(u.shape)}")
-        return u
+        return _given_uniforms(shape, uniforms).to(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(
             time.time_ns() % (2 ** 31))
@@ -276,12 +282,23 @@ def _uniforms(shape, device: torch.device,
                       device=generator.device).to(device)
 
 
+def _frame_arrays(image, depth, meta):
+    """A frame's inputs on the host as the graph takes them: image uint8,
+    depth f32, intrinsics (4,), depth scale f32 ()."""
+    return (np.asarray(image, np.uint8), np.asarray(depth, np.float32),
+            _intr_vec(meta), np.array(float(meta["depth_scale"]), np.float32))
+
+
+def _pinned(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """`t`, copied to pinned memory where it lies on the host and `device`
+    is a card, so that the copy to the card is asynchronous."""
+    return (t.pin_memory() if device.type == "cuda" and not t.is_cuda
+            else t)
+
+
 def _frame_inputs(image, depth, meta, device):
-    return (torch.as_tensor(np.asarray(image, np.uint8), device=device),
-            torch.as_tensor(np.asarray(depth, np.float32), device=device),
-            torch.as_tensor(_intr_vec(meta), device=device),
-            torch.tensor(float(meta["depth_scale"]), dtype=torch.float32,
-                         device=device))
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in _frame_arrays(image, depth, meta))
 
 
 def _materialize(host: Dict[str, np.ndarray], models: PredictionModels,
@@ -332,21 +349,30 @@ def full_prediction(image: np.ndarray, depth: np.ndarray, meta: Dict,
     `intr` (Intrinsics or dict) and `depth_scale` (to meters).
     'segmentation' times the whole frame on the device (its upload, the
     graph and the read of `found`), 'pose_estimation' the copy of its other
-    outputs to the host (`StageTimer`, as the JAX version).
+    outputs to the host (`StageTimer`, as the JAX version). On the card the
+    graph is replayed (`frame_graphs.py`), its host inputs staged through
+    pinned memory.
 
     Spans (`utils/timing.py`), one unit 'frame': 'frame.compute' ('frame.
-    upload', the graph's 'graph.*', 'frame.wait' on `found`) and 'frame.
-    readback'; each blocking read counts one 'host_syncs'."""
+    upload', the graph's 'graph.*' or, on the card, 'graph.replay', 'frame.
+    wait' on `found`) and 'frame.readback'; each blocking read counts one
+    'host_syncs'."""
     timer = StageTimer()
     k, dev = len(models.classes), models.device
+    shape = (k, models.num_points)
     with span("frame", unit=True):
         with torch.inference_mode():
             with timer.stage("segmentation", span="frame.compute"):
                 with span("frame.upload"):
-                    frame = _frame_inputs(image, depth, meta, dev)
-                    u = _uniforms((k, models.num_points), dev, generator,
-                                  uniforms)
-                out = _predict_frame(models, *frame, u)
+                    u = (_uniforms(shape, dev, generator, None)
+                         if uniforms is None
+                         else _given_uniforms(shape, uniforms))
+                    sources = tuple(
+                        _pinned(t, dev) for t in
+                        [torch.from_numpy(a) for a in
+                         _frame_arrays(image, depth, meta)] + [u])
+                    run = frame_graphs.load(_predict_frame, models, sources)
+                out = run()
                 with span("frame.wait"):
                     out["found"] = out["found"].cpu()
                     count("host_syncs")
@@ -395,19 +421,23 @@ def serve_stream(frames, models: PredictionModels, in_flight: int = 4,
 
     Dispatching does not wait for the device. Each call's inputs are
     written to pinned host buffers, a ring of `in_flight` + 1 sets, and
-    copied to the card asynchronously; the depth goes in the camera's
+    copied to the card asynchronously (into the static inputs of the
+    replayed graph, `frame_graphs.py`); the depth goes in the camera's
     dtype and is cast on the card. The outputs that the host reads are
-    copied into pinned host tensors asynchronously, and an event recorded
+    copied into pinned host tensors asynchronously, right behind the
+    replay and before the next call's inputs, and an event recorded
     behind them; a call's results are read after its event has completed,
     and only then is its buffer set filled again. Everything runs on the
-    current stream, so no tensor is reused while a copy still reads it: an
-    upload stream would overlap ~0.1 ms of copies a frame with compute and
-    is not worth its ordering.
+    current stream, so no tensor is reused while a copy still reads it
+    and no replay overwrites outputs still being copied: an upload stream
+    would overlap ~0.1 ms of copies a frame with compute and is not worth
+    its ordering.
 
     Spans (`utils/timing.py`), one unit a call: 'stream.dispatch' (with
-    'stream.upload' and the graph's 'graph.*'; attributes `frames`,
-    `batch`, `in_flight`), then 'stream.wait' on its event (one
-    'host_syncs') and a 'stream.readback' for each frame."""
+    'stream.upload' and the graph's 'graph.*' or, on the card,
+    'graph.replay'; attributes `frames`, `batch`, `in_flight`), then
+    'stream.wait' on its event (one 'host_syncs') and a 'stream.readback'
+    for each frame."""
     dev = models.device
     k, npt = len(models.classes), models.num_points
     batch = max(1, batch)
@@ -422,7 +452,7 @@ def serve_stream(frames, models: PredictionModels, in_flight: int = 4,
     dispatched = 0
 
     def upload(slot, name, arrays):
-        """`arrays` (one a frame) through the slot's pinned buffer."""
+        """`arrays` (one a frame) in the slot's pinned buffer."""
         dtype = torch.from_numpy(arrays[0][:0]).dtype
         shape = (batch,) + arrays[0].shape
         buf = slot.get(name)
@@ -432,7 +462,7 @@ def serve_stream(frames, models: PredictionModels, in_flight: int = 4,
         host = buf.numpy()
         for i in range(batch):       # the padding repeats the last frame
             host[i] = arrays[min(i, len(arrays) - 1)]
-        return buf.to(dev, non_blocking=True)
+        return buf
 
     def dispatch(items, key):
         nonlocal dispatched
@@ -451,19 +481,24 @@ def serve_stream(frames, models: PredictionModels, in_flight: int = 4,
                 else:
                     u = torch.rand((batch, k, npt), generator=generator,
                                    device=generator.device).to(dev)
-            intr, scale = small[key]
+                intr, scale = small[key]
+                if batch == 1:
+                    run = frame_graphs.load(
+                        _predict_frame, models,
+                        (images[0], depths[0], intr, scale, u[0]))
+                else:
+                    run = frame_graphs.load(
+                        _predict_batch, models,
+                        (images, depths, intr, scale, u))
+            out = run()
             if batch == 1:
-                out = {name: t[None] for name, t in _predict_frame(
-                    models, images[0], depths[0], intr, scale,
-                    u[0]).items()}
-            else:
-                out = _predict_batch(models, images, depths, intr, scale, u)
+                out = {name: t[None] for name, t in out.items()}
             host = {name: out[name].to("cpu", non_blocking=True)
                     for name in _fetched(out, want_masks)}
             event = None
             if on_card:
                 event = torch.cuda.Event()
-                event.record()
+                event.record(torch.cuda.current_stream(dev))
         # `out` stays referenced until the results are read
         return host, len(items), event, out, call.unit
 

@@ -269,7 +269,8 @@ def test_traced_serve_stream_adds_no_host_sync():
     """`serve_stream` on the card with tracing on, under
     `torch.cuda.set_sync_debug_mode("error")`, which raises on any call
     that makes the host wait for the stream: the spans and the counter add
-    none, and each call counts its one event wait."""
+    none, and each call counts its one event wait and its one replay of
+    the frame graph."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the host-sync check is CUDA's")
     mp = np.random.default_rng(0).normal(size=(2, 10, 3)).astype(
@@ -291,5 +292,5 @@ def test_traced_serve_stream_adds_no_host_sync():
         torch.cuda.set_sync_debug_mode("default")
     assert len(outs) == 3
     rec = timing.records()
-    assert rec.counters == {"host_syncs": 2}
+    assert rec.counters == {"host_syncs": 2, "graph_replays": 2}
     assert len([s for s in rec.spans if s.name == "stream.dispatch"]) == 2
