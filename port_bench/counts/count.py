@@ -1,8 +1,17 @@
-"""Count the FLOPs of a configuration's frame and training steps on the
-reference networks, on the meta device (shapes only), and write them to
-`flops.json`:
+"""Count FLOPs on the reference networks, on the meta device (shapes
+only).
 
     python port_bench/counts/count.py
+    python port_bench/counts/count.py --config <c> --kind <k> --traffic <t>
+
+The first counts again the frame and the two DenseFusion steps of each
+configuration that `flops.json` holds, and writes `flops.json`. The second
+counts one kind of unit of one configuration by `kinds/<k>.py::flops(cfg,
+traffic)` under the traffic mix `<t>`, at the sizes that the module's
+`at(cfg, traffic)` names, and writes `<c>/<k>.json`: {"flops", "rule",
+"at": those sizes}. A new kind
+or a new configuration comes as new files; `flops.json` is not rewritten
+for it. The kinds of `flops.json`:
 
 frame      the U-Net over one frame, the PoseNet over the K class lanes and
            the refiner passes over them (every lane runs, found or not, so
@@ -16,6 +25,8 @@ refiner    a refiner step: the PoseNet forward, the estimator loss forward
            backward with their losses."""
 from __future__ import annotations
 
+import argparse
+import importlib
 import json
 import os
 import sys
@@ -111,20 +122,53 @@ def count(cfg) -> dict:
             "refiner_step": ref}
 
 
-def main() -> None:
-    table = {}
-    configs = os.path.join(os.path.dirname(HERE), "configs")
-    for fname in sorted(os.listdir(configs)):
-        with open(os.path.join(configs, fname)) as f:
-            cfg = json.load(f)
-        table[fname[:-5]] = count(cfg)
-    table["rule"] = ("FlopCounterMode, convolutions by their taps inside the "
-                     "input, forward and backward; the symmetric moments by "
-                     "XLA's closed forms (counts/rules.py)")
-    with open(os.path.join(HERE, "flops.json"), "w") as f:
-        json.dump(table, f, indent=1)
+RULE = ("FlopCounterMode, convolutions by their taps inside the input, "
+        "forward and backward; the symmetric moments by XLA's closed forms "
+        "(counts/rules.py)")
+
+
+def _read(*parts) -> dict:
+    with open(os.path.join(os.path.dirname(HERE), *parts)) as f:
+        return json.load(f)
+
+
+def count_kind(config: str, kind: str, traffic: str) -> dict:
+    """{"flops", "rule", "at"} of `kind` for `config` under `traffic`."""
+    cfg = _read("configs", config + ".json")
+    mix = _read("traffic", traffic + ".json")
+    mod = importlib.import_module(f"counts.kinds.{kind}")
+    return {"flops": int(mod.flops(cfg, mix)), "rule": RULE,
+            "at": {"traffic": traffic, **mod.at(cfg, mix)}}
+
+
+def _write(path: str, obj) -> None:
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=1)
         f.write("\n")
-    print(json.dumps(table, indent=1))
+    print(json.dumps(obj, indent=1))
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config")
+    ap.add_argument("--kind")
+    ap.add_argument("--traffic")
+    args = ap.parse_args(argv)
+    given = [args.config, args.kind, args.traffic]
+    if any(given):
+        if not all(given):
+            ap.error("--config, --kind and --traffic go together")
+        os.makedirs(os.path.join(HERE, args.config), exist_ok=True)
+        _write(os.path.join(HERE, args.config, args.kind + ".json"),
+               count_kind(args.config, args.kind, args.traffic))
+        return
+    path = os.path.join(HERE, "flops.json")
+    with open(path) as f:
+        names = [k for k in json.load(f) if k != "rule"]
+    table = {name: count(_read("configs", name + ".json"))
+             for name in names}
+    table["rule"] = RULE
+    _write(path, table)
 
 
 if __name__ == "__main__":

@@ -9,6 +9,12 @@
                                  entry
   metrics/<metric>.py            one reader of a per-layer metric
   limits/<cell>.json             the limits of a cell's `correct`
+  counts/<config>/<kind>.json    the frozen FLOPs of one kind of unit (a
+                                 frame, a step) of a configuration, written
+                                 by `counts/count.py` from
+  counts/kinds/<kind>.py         the count of that kind of unit; the kinds
+                                 counted before these files existed are in
+                                 counts/flops.json, by configuration
 
 `root` is the benchmark's folder; BENCHMARK.json lies one level up."""
 from __future__ import annotations
@@ -50,6 +56,13 @@ class Cell:
                           if name in m.get("workloads", [name])]
         self.limits = read_json(os.path.join(root, "limits",
                                              name + ".json"))["limits"]
+        self._flops = config_flops(root, self.spec["config"])
+
+    def flops(self) -> Dict[str, int]:
+        """{kind: FLOPs of one unit} of the cell's configuration: its entry
+        of counts/flops.json and every counts/<config>/<kind>.json; {}
+        where it has none."""
+        return dict(self._flops)
 
     def driver(self):
         return load_module(os.path.join(self.root, "drivers",
@@ -61,6 +74,25 @@ class Cell:
             os.path.join(self.root, "metrics", m["name"] + ".py"),
             "port_bench_metric_" + m["name"].replace(".", "_"))
             for m in self.per_layer}
+
+
+def config_flops(root: str, config: str) -> Dict[str, int]:
+    """The FLOP counts of `config` (see `Cell.flops`). A kind counted in
+    both places raises ValueError."""
+    counts = os.path.join(root, "counts")
+    table = read_json(os.path.join(counts, "flops.json")).get(config, {})
+    out = dict(table)
+    folder = os.path.join(counts, config)
+    if os.path.isdir(folder):
+        for fname in sorted(os.listdir(folder)):
+            if not fname.endswith(".json"):
+                continue
+            kind = fname[:-len(".json")]
+            if kind in out:
+                raise ValueError(f"{config}'s {kind} is counted in "
+                                 f"counts/flops.json and in {fname}")
+            out[kind] = read_json(os.path.join(folder, fname))["flops"]
+    return out
 
 
 def load_module(path: str, name: str):

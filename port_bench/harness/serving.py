@@ -70,8 +70,13 @@ class Pool:
 
 def served_arrays(result: Dict, k: int, hw) -> Dict[str, torch.Tensor]:
     """A `full_prediction`-form result -> found (K,), masks (K, H, W),
-    quats (K, 4), positions (K, 3); classes are named obj0..obj{K-1}."""
+    quats (K, 4), positions (K, 3), converged (K,) (the program's word that
+    a class's component labels converged); classes are named
+    obj0..obj{K-1}."""
     found = torch.zeros(k, dtype=torch.bool)
+    converged = torch.zeros(k, dtype=torch.bool)
+    for cls, flag in result["cca_converged"].items():
+        converged[int(cls[3:])] = bool(flag)
     masks = torch.zeros((k,) + tuple(hw), dtype=torch.bool)
     quats, pos = torch.zeros(k, 4), torch.zeros(k, 3)
     for cls, p in result["predictions"].items():
@@ -81,7 +86,7 @@ def served_arrays(result: Dict, k: int, hw) -> Dict[str, torch.Tensor]:
         quats[i] = torch.as_tensor(np.asarray(p["rotation"], np.float32))
         pos[i] = torch.as_tensor(np.asarray(p["position"], np.float32))
     return {"found": found, "masks": masks, "quats": quats,
-            "positions": pos}
+            "positions": pos, "converged": converged}
 
 
 def reference_judge(cfg: Dict, seed: int, model_points: np.ndarray,
@@ -121,12 +126,14 @@ def bounds_summary(bounds: List) -> str:
     """How tightly the reference pins the found set and the masses."""
     lo = torch.cat([b[0] for b in bounds])
     hi = torch.cat([b[1] for b in bounds])
+    converged = torch.cat([b[2] for b in bounds])
     sure = lo > 0
     ratio = (hi[sure] / lo[sure]).tolist() or [float("nan")]
     return (f"mass bounds: {int(sure.sum())} of {lo.numel()} lanes found "
-            f"either way, {int((hi == 0).sum())} absent either way; most / "
-            f"least mass median {statistics.median(ratio):.4f}, "
-            f"largest {max(ratio):.4f}")
+            f"either way, {int((hi == 0).sum())} absent either way, "
+            f"{int((sure & converged).sum())} held to the least (labels "
+            f"converged); most / least mass median "
+            f"{statistics.median(ratio):.4f}, largest {max(ratio):.4f}")
 
 
 class ServingDriver:

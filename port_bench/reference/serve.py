@@ -17,15 +17,27 @@ rounding, and the judge accepts either:
              returned mask, weighed by the reference's probabilities of
              that class (0 where the class was not returned), against the
              least and the most mass that the best component can have
-             under the reference, the component stage run on the class's
-             pixels with the tied ones left out and with them taken in
-             (each needing more than 100 pixels and one with depth, as the
-             program's `found` does). The worst class's shortfall below
-             the least, over it, or excess above the most, over the
-             returned mass: a class left out that the reference finds
-             either way, or found where it cannot be, reads 1, half a
-             component about 0.5. Two components whose masses lie close
-             are both accepted, as rounding may pick either;
+             under the reference, the component stage run to convergence
+             on the class's pixels with the tied ones left out and with
+             them taken in (each needing more than 100 pixels and one with
+             depth, as the program's `found` does). The worst class's
+             shortfall below the least, over it, or excess above the most,
+             over the returned mass: a class left out that the reference
+             finds either way, or found where it cannot be, reads 1, half
+             a component about 0.5. The least holds only where the
+             program's labels converged: the configuration's fixed sweeps
+             (`cca_sweeps`) may leave a component of the program's class
+             pixels split in parts, and the best part of a class set that
+             holds the tied pixels can weigh less than the best component
+             of the set without them. The program says which lanes
+             converged (`cca_converged`); on the others only a class left
+             out, and the most, are held;
+  cell_gap   each returned mask against the cells (`cca_scale` pixels
+             square) that the component stage labels: a component is
+             every pixel of its class in each cell it holds, so a mask
+             keeps every pixel of its class that the reference gives it
+             beyond the tie margin in each of its cells. The worst share
+             of those pixels that a mask leaves out;
   pose_err   the pose stage followed from the program's own mask, with
              the same draws: the worst found class's mean distance [m]
              between the model points under the returned pose and under
@@ -40,6 +52,7 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 from . import geometry as G
 from .nets import normalize_imagenet
@@ -54,21 +67,40 @@ class Frame(dict):
 def components(cls_mask: torch.Tensor, score: torch.Tensor,
                cca_scale: int, cca_sweeps: int, min_count: int = 100):
     """Best component (K, H, W) of each class's pixels `cls_mask` scored
-    on `score` (K, H, W), and its found flag (more than `min_count`
-    pixels)."""
+    on `score` (K, H, W), its found flag (more than `min_count` pixels)
+    and whether its labels converged. `cca_sweeps` 0 labels to
+    convergence."""
     count = cls_mask.sum((-2, -1))
-    comp, found = G.best_component_mask(
+    h, w = cls_mask.shape[-2:]
+    cells = -(-h // cca_scale) * -(-w // cca_scale)
+    comp, found, converged = G.best_component_mask(
         cls_mask, torch.where(cls_mask, score, 0.0), rule="sum",
-        scale=cca_scale, fixed_sweeps=cca_sweeps)
-    return comp, found & (count > min_count)
+        scale=cca_scale, fixed_sweeps=cca_sweeps, max_iters=cells,
+        with_flag=True)
+    return comp, found & (count > min_count), converged
 
 
 def class_masks(probs: torch.Tensor, arg: torch.Tensor, k: int,
                 cca_scale: int, cca_sweeps: int, min_count: int = 100):
-    """Best component (K, H, W) of classes 1..K and their found flags."""
+    """Best component (K, H, W) of classes 1..K, their found flags and
+    whether their labels converged."""
     cls_ids = torch.arange(1, k + 1, device=arg.device)
     return components(arg == cls_ids[:, None, None], probs[1:k + 1],
                       cca_scale, cca_sweeps, min_count)
+
+
+def cell_gap(masks: torch.Tensor, sure: torch.Tensor, scale: int) -> float:
+    """The worst share, over masks (K, H, W), of the pixels `sure` (K, H,
+    W) of each mask's class inside the mask's own `scale`-pixel cells that
+    the mask leaves out."""
+    h, w = masks.shape[-2:]
+    pad = F.pad(masks.to(torch.float32), (0, (-w) % scale, 0, (-h) % scale))
+    held = F.max_pool2d(pad[:, None], scale)[:, 0] > 0
+    region = held.repeat_interleave(scale, -2).repeat_interleave(
+        scale, -1)[..., :h, :w]
+    due = sure & region
+    missing = (due & ~masks).sum((-2, -1))
+    return float((missing / due.sum((-2, -1)).clamp(min=1)).max())
 
 
 def pose_inputs(frame: Frame, masks: torch.Tensor, crop: int, num_pt: int):
@@ -87,14 +119,15 @@ def pose_inputs(frame: Frame, masks: torch.Tensor, crop: int, num_pt: int):
 
 @torch.no_grad()
 def frame_outputs(nets, frame: Frame, cfg: Dict) -> Dict[str, torch.Tensor]:
-    """found (K,), masks (K, H, W), quats (K, 4), positions (K, 3)."""
+    """found (K,), masks (K, H, W), quats (K, 4), positions (K, 3),
+    converged (K,)."""
     unet, posenet, refiner = nets
     k = cfg["num_objects"]
     img = frame["image"].permute(2, 0, 1)
     logits = unet(normalize_imagenet(img)[None])[0]
     probs = torch.softmax(logits, 0)
-    masks, found = class_masks(probs, probs.argmax(0), k, cfg["cca_scale"],
-                               cfg["cca_sweeps"])
+    masks, found, converged = class_masks(
+        probs, probs.argmax(0), k, cfg["cca_scale"], cfg["cca_sweeps"])
     crops, cloud, choose, count = pose_inputs(frame, masks, cfg["crop"],
                                               cfg["num_points"])
     obj = torch.arange(k, device=img.device)
@@ -106,7 +139,44 @@ def frame_outputs(nets, frame: Frame, cfg: Dict) -> Dict[str, torch.Tensor]:
     quat, trans = refine_chain(refiner, quat, trans, cloud, emb, obj,
                                cfg["refine_iters"])
     return {"found": found & (count > 0), "masks": masks, "quats": quat,
-            "positions": trans}
+            "positions": trans, "converged": converged.expand(k)}
+
+
+def mass_bounds(frame: Frame, sure: torch.Tensor, maybe: torch.Tensor,
+                probs: torch.Tensor, cfg: Dict):
+    """(least, most) mass (K,) of each class's best component, its tied
+    pixels left out (`sure`) or taken in (`maybe`), labelled to
+    convergence; 0 where it is not found."""
+    k = cfg["num_objects"]
+    masses = []
+    for cls_mask in (sure, maybe):
+        comp, found, _ = components(cls_mask, probs[1:k + 1],
+                                    cfg["cca_scale"], 0)
+        count = pose_inputs(frame, comp, cfg["crop"], cfg["num_points"])[3]
+        found = found & (count > 0)
+        masses.append(torch.where(
+            found, (probs[1:k + 1] * comp).sum((-2, -1)), 0.0))
+    return torch.minimum(*masses), torch.maximum(*masses)
+
+
+def mask_gaps(frame: Frame, logits: torch.Tensor, masks: torch.Tensor,
+              converged: torch.Tensor, cfg: Dict, tie: float):
+    """mass_gap and cell_gap (see above) of the returned masks (K, H, W),
+    empty where a class was not returned, against the reference's logits
+    (K + 1, H, W); and the (least, most) masses."""
+    k = cfg["num_objects"]
+    probs = torch.softmax(logits, 0)
+    top = logits.topk(2, dim=0)
+    ids = torch.arange(1, k + 1, device=logits.device)[:, None, None]
+    sure = (top.indices[0] == ids) & (top.values[0] - top.values[1] > tie)
+    maybe = top.values[0] - logits[1:k + 1] <= tie
+    lo, hi = mass_bounds(frame, sure, maybe, probs, cfg)
+    mass = (probs[1:k + 1] * masks).sum((-2, -1))
+    short = (lo - mass).clamp(min=0) / lo.clamp(min=1e-30)
+    short = torch.where(converged | (mass == 0), short, 0.0)
+    excess = (mass - hi).clamp(min=0) / mass.clamp(min=1e-30)
+    return {"mass_gap": float(torch.maximum(short, excess).max()),
+            "cell_gap": cell_gap(masks, sure, cfg["cca_scale"])}, (lo, hi)
 
 
 def add_distance(q1, t1, q2, t2, model: torch.Tensor) -> torch.Tensor:
@@ -127,27 +197,6 @@ class FrameJudge:
         self.nets, self.model_points, self.cfg = nets, model_points, cfg
         self.tie, self.candidates, self.block = tie, candidates, block
         self.bounds = []       # (least, most) masses of each judged frame
-
-    def _mass_bounds(self, frame: Frame, logits: torch.Tensor,
-                     probs: torch.Tensor):
-        """(least, most) mass (K,) of each class's best component, its
-        tied pixels left out or taken in; 0 where it is not found."""
-        cfg, k = self.cfg, self.cfg["num_objects"]
-        top = logits.topk(2, dim=0)
-        ids = torch.arange(1, k + 1, device=logits.device)[:, None, None]
-        sure = (top.indices[0] == ids) & (
-            top.values[0] - top.values[1] > self.tie)
-        maybe = top.values[0] - logits[1:k + 1] <= self.tie
-        masses = []
-        for cls_mask in (sure, maybe):
-            comp, found = components(cls_mask, probs[1:k + 1],
-                                     cfg["cca_scale"], cfg["cca_sweeps"])
-            count = pose_inputs(frame, comp, cfg["crop"],
-                                cfg["num_points"])[3]
-            found = found & (count > 0)
-            masses.append(torch.where(
-                found, (probs[1:k + 1] * comp).sum((-2, -1)), 0.0))
-        return torch.minimum(*masses), torch.maximum(*masses)
 
     def _refined(self, quat, trans, cloud, emb, obj, tf32: bool):
         """Every candidate pose (L, C) refined: (L, C, 4), (L, C, 3), in
@@ -200,8 +249,8 @@ class FrameJudge:
     def judge(self, frame: Frame, served: Dict[str, torch.Tensor]
               ) -> Dict[str, float]:
         """`served`: found (K,) bool, masks (K, H, W) bool (empty where not
-        found), quats (K, 4), positions (K, 3), as the program returned
-        them."""
+        found), quats (K, 4), positions (K, 3), converged (K,) bool, as
+        the program returned them."""
         unet = self.nets[0]
         k = self.cfg["num_objects"]
         dev = frame["image"].device
@@ -213,13 +262,11 @@ class FrameJudge:
         gaps = torch.where(masks_p, best[None] - logits[1:k + 1], 0.0)
         out = {"seg_gap": float(gaps.max()) if masks_p.any() else 0.0}
 
-        probs = torch.softmax(logits, 0)
-        lo, hi = self._mass_bounds(frame, logits, probs)
-        self.bounds.append((lo.cpu(), hi.cpu()))
-        mass = (probs[1:k + 1] * masks_p).sum((-2, -1))
-        short = (lo - mass).clamp(min=0) / lo.clamp(min=1e-30)
-        excess = (mass - hi).clamp(min=0) / mass.clamp(min=1e-30)
-        out["mass_gap"] = float(torch.maximum(short, excess).max())
+        converged = served["converged"].to(dev)
+        gaps, (lo, hi) = mask_gaps(frame, logits, masks_p, converged,
+                                   self.cfg, self.tie)
+        out.update(gaps)
+        self.bounds.append((lo.cpu(), hi.cpu(), converged.cpu()))
 
         out["pose_err"] = 0.0
         live = torch.nonzero(found_p).flatten()

@@ -87,7 +87,6 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
     """One run of `cell` on `device`: the result object but `device`."""
     import torch
 
-    from harness import files
     from harness import trace as tr
 
     driver = cell.driver().Driver(cell.config, cell.traffic, seed, device)
@@ -106,9 +105,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
                                   "unit": m["unit"]}
     else:
         trace_obj, units = tr.traced(driver.traced_units)
-        flops = files.read_json(os.path.join(
-            cell.root, "counts", "flops.json"))[cell.spec["config"]]
-        ctx = Context(cell, window, trace_obj, units, flops)
+        ctx = Context(cell, window, trace_obj, units, cell.flops())
         units_of = {m["name"]: m["unit"] for m in cell.per_layer}
         for name, reader in cell.metric_readers().items():
             value = reader.read(ctx)

@@ -92,6 +92,8 @@ def test_found_set_and_masks_are_held(name, fault, monkeypatch):
     FAULTS[fault](monkeypatch)
     ok, checks = _run(tiny.tiny_cell(name))
     assert not ok and checks["mass_gap"]["value"] > 0.3, checks
+    if fault == "half_a_component":
+        assert checks["cell_gap"]["value"] > 0.0, checks
 
 
 def test_half_of_a_stream_batch_left_out(monkeypatch):

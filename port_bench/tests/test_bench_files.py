@@ -4,6 +4,7 @@ import json
 import os
 import re
 import shutil
+import time
 
 import pytest
 
@@ -64,9 +65,20 @@ def test_every_cell_resolves(cell):
     assert c.limits
 
 
-def test_a_new_cell_by_new_files_alone(tmp_path):
-    """A configuration, a traffic mix, a cell, a per-layer metric and its
-    limits added as new files and entries; no existing file edited."""
+def _cpu_traced(work):
+    """`harness/trace.py::traced` for the CPU: the work once, under a
+    stand-in trace."""
+    from harness import trace
+
+    units = work()
+    return trace.Trace(1.0, 0.5, {"kernel": (100, 0.4)}, [], []), units
+
+
+def test_a_new_cell_by_new_files_alone(tmp_path, monkeypatch):
+    """A configuration, a traffic mix, a cell, a per-layer metric, its
+    limits and its FLOP count added as new files and entries; no existing
+    file edited. The new cell's traced path runs to its metrics, the
+    count read by name."""
     bench = tmp_path / "port_bench"
     shutil.copytree(files.HERE, bench,
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -106,6 +118,21 @@ def test_a_new_cell_by_new_files_alone(tmp_path):
         traced_units = 7
 
     assert readers["frames_traced"].read(Ctx()) == 7.0
+    assert cell.flops() == {}
+    (bench / "counts" / "autopose_3obj").mkdir()
+    (bench / "counts" / "autopose_3obj" / "frame.json").write_text(
+        json.dumps({"flops": 300_000_000_000, "rule": "x", "at": {}}))
+    from harness import trace
+    import run as R
+    import tiny
+
+    monkeypatch.setattr(trace, "traced", _cpu_traced)
+    cell = tiny.tiny_cell("live.autopose_3obj", root=str(bench))
+    out = R.run(cell, 2 ** 31 + 9, 0.3, True, "cpu", time.perf_counter())
+    w = out["window"]
+    assert out["metrics"]["mfu_pct.serve"]["value"] == pytest.approx(
+        100 * 300e9 * w["units"] / w["seconds"] / 989e12)
+    assert out["metrics"]["frames_traced"]["value"] == out["units"]
     after = {p: p.read_bytes() for p in before}
     assert after == before
 

@@ -105,6 +105,7 @@ def test_frame_graph_matches_the_program():
             models), cfg["num_objects"], cfg["image_hw"])
         got = judge.judge(frame, served)
         assert got["seg_gap"] == 0.0 and got["mass_gap"] < 1e-6, got
+        assert got["cell_gap"] == 0.0, got
         assert got["pose_err"] < 1e-5
 
 

@@ -21,12 +21,12 @@ SMALL_LAYOUT = {
     "camera": {"ring_radius_mm": 500, "height_mm": 450, "focal_px": 140}}
 
 
-def tiny_cell(name: str, dtype: str = "float32") -> Cell:
-    """`name` cut small; in float32 the symmetric loss's distances are
-    float32 too, so that a sound run reads float32's rounding (at 32 model
-    points the bf16 distances' other matches move a leaf's gradient by
-    tens of per cent)."""
-    cell = Cell(name, BENCH)
+def tiny_cell(name: str, dtype: str = "float32", root: str = BENCH) -> Cell:
+    """`name` (of the benchmark in `root`) cut small; in float32 the
+    symmetric loss's distances are float32 too, so that a sound run reads
+    float32's rounding (at 32 model points the bf16 distances' other
+    matches move a leaf's gradient by tens of per cent)."""
+    cell = Cell(name, root)
     cfg = copy.deepcopy(cell.config)
     cfg.update(num_objects=2, seg_classes=3, image_hw=[96, 128],
                num_points=64, num_points_mesh=32, crop=32, dtype=dtype)
