@@ -6,7 +6,9 @@ The pooling keeps the JAX version's one-hot form: each 2x2 window records
 the position of its first maximum (`argmax`; `F.max_pool2d`'s indices make
 no such promise on ties) and unpooling puts the value back there. The
 pooled maximum is `amax`, whose gradient is shared among tied elements as
-JAX's `max` shares it."""
+JAX's `max` shares it. Each pooling and unpooling in `SegNet.forward` is a
+span of the tracer (`utils/timing.py`), 'segnet.pool' and 'segnet.unpool',
+five of each a forward."""
 from __future__ import annotations
 
 from typing import Sequence, Tuple
@@ -15,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.timing import span
 from .common import BatchNorm2d, Conv2d
 
 ENCODER_WIDTHS = ((64, 64), (128, 128), (256, 256, 256), (512, 512, 512),
@@ -83,10 +86,14 @@ class SegNet(nn.Module):
         y = x.to(self.dtype)
         indices = []
         for stack in self.encoder:
-            y, onehot = max_pool_with_indices(stack(y))
+            y = stack(y)
+            with span("segnet.pool"):
+                y, onehot = max_pool_with_indices(y)
             indices.append(onehot)
         for stack, onehot in zip(self.decoder, reversed(indices)):
-            y = stack(max_unpool(y, onehot))
+            with span("segnet.unpool"):
+                y = max_unpool(y, onehot)
+            y = stack(y)
         return self.head(y.to(torch.float32))
 
 

@@ -46,7 +46,7 @@ from ..ops import cca as cca_ops
 from ..parallel import mesh as pmesh
 from ..utils import io
 from ..utils.device import resolve_device
-from ..utils.timing import JsonCurveLog
+from ..utils.timing import JsonCurveLog, span
 from . import checkpoints
 from .densefusion import _f32
 
@@ -148,20 +148,27 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     `mesh` every rank passes the same global batch (and the model's
     BatchNorms are synced over 'data', see `segmentation_training`); the
     loss is the global batch's, `conf` this rank's share of its
-    confusion."""
-    model.train()
-    optimizer.zero_grad(set_to_none=True)
-    batch, counts = _local(mesh, batch)
-    logits = model(batch["image"])
-    loss = losses.jaccard_loss(batch["label"], logits,
-                               group=_data_group(mesh))
-    loss.backward()
-    if mesh is not None:
-        pmesh.all_reduce_grads(mesh, model.parameters())
-    optimizer.step()
-    conf = losses.confusion_matrix(logits.detach().argmax(1), batch["label"],
-                                   num_classes)
-    return {"loss": loss.detach(), "conf": conf if counts else conf * 0}
+    confusion. Spans (`utils/timing.py`): one unit 'step' (kind 'unet') of
+    'step.forward' (the forward and the loss), 'step.backward' and
+    'step.optimizer' (the gradients' average over 'data' and the update);
+    the confusion follows them inside the unit."""
+    with span("step", unit=True, kind="unet"):
+        with span("step.forward"):
+            model.train()
+            optimizer.zero_grad(set_to_none=True)
+            batch, counts = _local(mesh, batch)
+            logits = model(batch["image"])
+            loss = losses.jaccard_loss(batch["label"], logits,
+                                       group=_data_group(mesh))
+        with span("step.backward"):
+            loss.backward()
+        with span("step.optimizer"):
+            if mesh is not None:
+                pmesh.all_reduce_grads(mesh, model.parameters())
+            optimizer.step()
+        conf = losses.confusion_matrix(logits.detach().argmax(1),
+                                       batch["label"], num_classes)
+        return {"loss": loss.detach(), "conf": conf if counts else conf * 0}
 
 
 @torch.no_grad()

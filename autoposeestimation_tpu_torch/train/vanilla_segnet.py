@@ -22,6 +22,7 @@ from .. import weights
 from ..models import segnet as segnet_mod
 from ..models.common import init_like_flax
 from ..utils.device import resolve_device
+from ..utils.timing import span
 from . import checkpoints
 from .segmentation import to_device
 
@@ -42,14 +43,20 @@ def setup_logger(logger_name: str, log_file: str,
 
 def train_step(model: segnet_mod.SegNet, optimizer: torch.optim.Optimizer,
                batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """One step in train mode; the cross-entropy before the update."""
-    model.train()
-    optimizer.zero_grad(set_to_none=True)
-    loss = segnet_mod.cross_entropy_loss(batch["label"],
-                                         model(batch["image"]))
-    loss.backward()
-    optimizer.step()
-    return loss.detach()
+    """One step in train mode; the cross-entropy before the update. Spans
+    (`utils/timing.py`): one unit 'step' (kind 'segnet') of 'step.forward'
+    (the forward and the loss), 'step.backward' and 'step.optimizer'."""
+    with span("step", unit=True, kind="segnet"):
+        with span("step.forward"):
+            model.train()
+            optimizer.zero_grad(set_to_none=True)
+            loss = segnet_mod.cross_entropy_loss(batch["label"],
+                                                 model(batch["image"]))
+        with span("step.backward"):
+            loss.backward()
+        with span("step.optimizer"):
+            optimizer.step()
+        return loss.detach()
 
 
 @torch.no_grad()

@@ -6,7 +6,8 @@ CPU, in the three entries the benchmark drives: `full_prediction`,
     raises here) and records nothing, and the entries' outputs are bit for
     bit those with tracing on.
   * On, each entry's spans nest under its unit ('frame', 'stream.dispatch',
-    'step') with one unit id; `full_prediction` counts 5 'host_syncs'.
+    'step') with one unit id; `full_prediction` counts 5 'host_syncs'. The
+    segmentation step records the training steps' three spans too.
   * `serve_stream` closes every span before each `yield`.
   * Under `torch.profiler` each span is an event of the profiler, and
     `Records.epoch_ns` puts its start within 1 ms of the event's.
@@ -17,9 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+from autoposeestimation_tpu_torch.models.unet import UNet
 from autoposeestimation_tpu_torch.parallel.trainers import pose_batches
 from autoposeestimation_tpu_torch.pipeline import predict
 from autoposeestimation_tpu_torch.train import densefusion as dft
+from autoposeestimation_tpu_torch.train import segmentation as seg
 from autoposeestimation_tpu_torch.utils import timing
 from autoposeestimation_tpu_torch.utils.io import Intrinsics
 
@@ -216,6 +219,26 @@ def test_training_steps_record_forward_backward_optimizer(models):
             "optimizer.adam", "optimizer.clip"]
         assert (kids["step.forward"].end_ns <= kids["step.backward"].start_ns
                 and kids["step.backward"].end_ns <= opt.start_ns)
+    assert rec.counters == {}
+
+
+def test_segmentation_step_records_forward_backward_optimizer():
+    net = UNet(3, decoder_channels=(16, 8, 8, 8, 8),
+               encoder_stages=(1, 1, 1, 1))
+    opt = torch.optim.Adam(net.parameters(), lr=1e-4)
+    g = torch.Generator().manual_seed(0)
+    batch = {"image": torch.randn(2, 3, 32, 32, generator=g),
+             "label": torch.randint(0, 3, (2, 32, 32), generator=g)}
+    timing.enable()
+    seg.train_step(net, opt, batch, 3)
+    rec = timing.records()
+    (step,) = _by_name(rec)["step"]
+    assert step.attrs == {"kind": "unet"}
+    assert all(s.unit == step.unit for s in rec.spans)
+    kids = [s for s in rec.spans if s.parent == step.id]
+    assert [s.name for s in sorted(kids, key=lambda s: s.start_ns)] == [
+        "step.forward", "step.backward", "step.optimizer"]
+    assert all(a.end_ns <= b.start_ns for a, b in zip(kids, kids[1:]))
     assert rec.counters == {}
 
 
